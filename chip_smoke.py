@@ -7,21 +7,37 @@ Phases (each raises on failure, the script then exits non-zero):
   1. require CUDA; print the card and its power limit (nvidia-smi);
   2. build the port's CUDA kernels from csrc/ (ops/_build.py);
   3. each kernel against its plain PyTorch version on the card, at the
-     serving path's shapes (bs=32) in fp32 and bf16: max |error| and the
-     median times of both (CUDA events);
+     serving path's shapes (bs=32) in fp32 and bf16, the nearest-source
+     kernel at the train step's (bs=8) and at 8192 x 8192 points, with its
+     backward: max |error| and the median times of both (CUDA events);
   4. the pose stage fed ground-truth normalised coordinates of a synthetic
      batch: mean rotation error < 1 deg and ADD@0.1d >= 0.9;
   5. the shipped schema.Config() KRRN (full HRNet, 13 classes, 1024
      points, bf16 activations, seeded random weights) served through
      serve.build_infer_step on a synthetic bs=32 batch: finite outputs,
      launches per forward exactly 2 (linear aggregate), 1 (surface
-     aggregate), 8 (KNN), the kernel path against the plain path on the
-     same weights and batch, stage times and frames/s;
+     aggregate), 8 (KNN), 2 (nearest source: the up-sampling maps), the
+     kernel path against the plain path on the same weights and batch,
+     stage times and frames/s;
   6. the serving CLI (tools/infer.py) on 64 synthetic frames at batch 32,
      which must write 64 JSONL records;
+  7. training at full width (schema.Config(), bf16 activations, bs=8,
+     seeded random weights, synthetic frames): one step's loss and
+     gradient norm with the kernels against the plain versions from the
+     same state and batch; launches per train step exactly 2 (linear),
+     1 (surface), 8 (KNN), 3 (nearest source: the pose loss and the two
+     up-sampling maps); 30 steps on one fixed batch at lr 3e-4 without
+     warmup: finite losses, no skipped step, the mean of the last 5 losses
+     below the first; the median step time, its forward / backward /
+     optimizer split, samples/s, the peak device memory, the full step
+     with the plain versions, and the device's busy time over 3 profiled
+     steps;
+  8. the training CLI (cli.py --synthetic --debug --epochs 1) with a config
+     that starts the pose branch at epoch 0: JSONL train records and an
+     eval summary with add_dis;
 and checks that nothing of JAX or of the JAX package was imported.
-The last two lines are the kernels' JSON summary ... and
-{"ok": true, "device": {...}}.
+The last lines are the kernels' JSON summary, the card's name and power
+limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -29,6 +45,7 @@ from __future__ import annotations
 import contextlib
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -36,6 +53,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BS = 32
+TRAIN_BS = 8
 
 # (name, source, TPU kernel it replaces)
 KERNELS = {
@@ -45,6 +63,8 @@ KERNELS = {
                       "pose_estimation_tpu/ops/pallas_gcn.py:469"),
     "knn": ("pose_estimation_tpu_torch/csrc/knn.cu",
             "pose_estimation_tpu/ops/pallas_pointops.py:121"),
+    "min_dists": ("pose_estimation_tpu_torch/csrc/min_dists.cu",
+                  "pose_estimation_tpu/ops/pallas_pointops.py:45"),
 }
 
 
@@ -86,14 +106,17 @@ def plain_kernels():
     for a reference run on the card (this script's comparison only; the
     package itself has no such switch)."""
     from pose_estimation_tpu_torch.ops import gcn, pointops
-    saved = (gcn.linear_multi, gcn.surface_multi, pointops.knn)
+    saved = (gcn.linear_multi, gcn.surface_multi, pointops.knn,
+             pointops.nearest)
     gcn.linear_multi = gcn.linear_multi_plain
     gcn.surface_multi = gcn.surface_multi_plain
     pointops.knn = pointops.knn_plain
+    pointops.nearest = pointops.nearest_plain
     try:
         yield
     finally:
-        gcn.linear_multi, gcn.surface_multi, pointops.knn = saved
+        (gcn.linear_multi, gcn.surface_multi, pointops.knn,
+         pointops.nearest) = saved
 
 
 def reset_counts():
@@ -101,13 +124,15 @@ def reset_counts():
     gcn.linear_multi.launches = 0
     gcn.surface_multi.launches = 0
     pointops.knn.launches = 0
+    pointops.nearest.launches = 0
 
 
 def read_counts():
     from pose_estimation_tpu_torch.ops import gcn, pointops
     return {"linear_multi": gcn.linear_multi.launches,
             "surface_multi": gcn.surface_multi.launches,
-            "knn": pointops.knn.launches}
+            "knn": pointops.knn.launches,
+            "min_dists": pointops.nearest.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +184,55 @@ def check_knn(dev, g):
             raise AssertionError(f"knn {kind} {nq}x{nk}: distance error {rel}")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "tolerance": "relative 1e-5 on fp64 neighbour distances"}
+
+
+def check_min_dists(dev, g):
+    """The nearest-source kernel at a train step's shapes (B=8: the pose
+    loss's 1024 predicted points against 500 model points, and the two
+    up-sampling maps, 1024 points against 256 and 64) and at N=M=8192,
+    where the TPU wrapper would take its Pallas kernel: distances and
+    indices equal to the plain version's (the same operation order, so
+    bit for bit). The backward at the pose-loss shape against autograd
+    through the plain expression: 1e-3 * max(1, max|ref|) (the two forms
+    round the cancelling expanded distance differently)."""
+    import torch
+    from pose_estimation_tpu_torch.ops import pointops
+    b = TRAIN_BS
+    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    for n, m in ((1024, 500), (1024, 256), (1024, 64), (8192, 8192)):
+        t = _cloud(g, b, n, dev)
+        s = _cloud(g, b, m, dev)
+        d, i = pointops.nearest(t, s)
+        dp, ip = pointops.nearest_plain(t, s)
+        err = (d - dp).abs().max().item()
+        same = (i == ip).float().mean().item()
+        t_k = cuda_ms(lambda: pointops.nearest(t, s))
+        t_p = cuda_ms(lambda: pointops.nearest_plain(t, s), reps=5)
+        log(f"  min_dists B={b} {n}x{m}: max |err| {err:.3e}, index "
+            f"agreement {same:.6f}, kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        if not (err == 0.0 and same == 1.0):
+            raise AssertionError(f"min_dists {n}x{m}: {err}, {same}")
+        if n == 1024:
+            ms += t_k
+            plain_ms += t_p
+    t = _cloud(g, b, 1024, dev).requires_grad_()
+    s = _cloud(g, b, 500, dev).requires_grad_()
+    w = torch.rand((b, 1024), generator=g, device=dev)
+    gt, gs = torch.autograd.grad((pointops.min_dists(t, s) * w).sum(),
+                                 (t, s))
+    d2 = pointops.sqdist(t, s).min(dim=-1).values
+    plain = torch.sqrt(torch.clamp(d2, min=1e-16))
+    rt, rs = torch.autograd.grad((plain * w).sum(), (t, s))
+    for name, got, ref in (("target", gt, rt), ("source", gs, rs)):
+        err = (got - ref).abs().max().item()
+        tol = 1e-3 * max(1.0, ref.abs().max().item())
+        log(f"  min_dists backward, {name} gradient: max |err| {err:.3e} "
+            f"(tol {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"min_dists backward {name}: {err} > {tol}")
+        worst = max(worst, err)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "tolerance": "forward exact; backward 1e-3 * max(1, max|ref|)"}
 
 
 def _gcn_inputs(g, dev, n, m, k, streams=3, cin=128, s=7, o=128):
@@ -250,7 +324,7 @@ def check_linear(dev, g):
 # Phases 4-6
 # ---------------------------------------------------------------------------
 
-def synthetic_batch(cfg, dev, seed=0):
+def synthetic_batch(cfg, dev, seed=0, indices=None):
     import torch
     from pose_estimation_tpu_torch.data.synthetic import SyntheticPoseDataset
     from pose_estimation_tpu_torch.data.batching import make_batch
@@ -258,8 +332,8 @@ def synthetic_batch(cfg, dev, seed=0):
                               frames_per_object=4,
                               num_regions=cfg.data.num_regions)
     gen = torch.Generator().manual_seed(seed)
-    batch = make_batch(ds, list(range(BS)), gen, cfg.data.input_size,
-                       cfg.data.num_points)
+    batch = make_batch(ds, list(range(BS)) if indices is None else indices,
+                       gen, cfg.data.input_size, cfg.data.num_points)
     return {k: v.to(dev) for k, v in batch.items()}
 
 
@@ -308,8 +382,9 @@ def serve_full_width(cfg, batch, dev):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"  launches in one serving step: {counts}")
-    if counts != {"linear_multi": 2, "surface_multi": 1, "knn": 8}:
-        raise AssertionError(f"launch counts {counts} != 2/1/8")
+    if counts != {"linear_multi": 2, "surface_multi": 1, "knn": 8,
+                  "min_dists": 2}:
+        raise AssertionError(f"launch counts {counts} != 2/1/8/2")
     for k, v in out.items():
         if not torch.isfinite(v.float()).all():
             raise AssertionError(f"non-finite {k}")
@@ -369,6 +444,174 @@ def run_cli(cfg):
         raise AssertionError(f"{len(records)} JSONL records, expected 64")
 
 
+def _sync_ms(fn):
+    """fn()'s result and its wall milliseconds, synchronised on both
+    sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def train_full_width(cfg, dev):
+    """Phase 7: the KRRN train step of `cfg` (the shipped config) on one
+    fixed batch of TRAIN_BS frames, one of each of the first classes, at
+    the demo's learning rate without warmup."""
+    import torch
+    from pose_estimation_tpu_torch.configs import schema
+    from pose_estimation_tpu_torch.models.krrn import KRRN
+    from pose_estimation_tpu_torch.train.optim import make_optimizer
+    from pose_estimation_tpu_torch.train.state import TrainState
+    from pose_estimation_tpu_torch.train.train_step import build_train_step
+    cfg = schema.override(cfg, **{"train.lr.lr": 3e-4,
+                                  "train.lr.warmup_iters": 0})
+    batch = synthetic_batch(cfg, dev, seed=3,
+                            indices=[4 * j for j in range(TRAIN_BS)])
+    torch.manual_seed(0)
+    model = KRRN(cfg, dtype=torch.bfloat16).to(dev)
+    tx = make_optimizer(cfg, total_steps=1000)
+    state = TrainState.create(model, tx,
+                              torch.Generator(device=dev).manual_seed(0))
+    step = build_train_step(model, tx, cfg)
+
+    def loss_and_gnorm():
+        state.generator.manual_seed(1)
+        losses = step.losses(batch, True, True, state.generator)
+        grads = step.gradients(losses)
+        gn = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
+        return losses["loss"].item(), gn.item()
+
+    loss_and_gnorm()                                     # warm-up
+    (l_k, g_k), ms_k = _sync_ms(loss_and_gnorm)
+    with plain_kernels():
+        (l_p, g_p), ms_p = _sync_ms(loss_and_gnorm)
+    log(f"  one step's forward + backward from the same state and batch: "
+        f"loss {l_k:.6f} (plain {l_p:.6f}), gradient norm {g_k:.6f} (plain "
+        f"{g_p:.6f}); {ms_k:.1f} ms with the kernels, {ms_p:.1f} ms plain")
+    if not (abs(l_k - l_p) <= 2e-2 * max(1.0, abs(l_p))
+            and abs(g_k - g_p) <= 2e-2 * g_p):
+        raise AssertionError(f"train step kernel vs plain: loss {l_k} / "
+                             f"{l_p}, grad norm {g_k} / {g_p}")
+
+    # the main path, once, between resetting and reading the counts
+    reset_counts()
+    m = step(state, batch, opt_pose=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  launches in one train step: {counts}")
+    if counts != {"linear_multi": 2, "surface_multi": 1, "knn": 8,
+                  "min_dists": 3}:
+        raise AssertionError(f"launch counts {counts} != 2/1/8/3")
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, skipped, times, split = [], 0.0, [], []
+    for i in range(30):
+        if i < 25:
+            m, t = _sync_ms(lambda: step(state, batch, opt_pose=True))
+        else:
+            out, t1 = _sync_ms(lambda: step.losses(batch, True, True,
+                                                   state.generator))
+            grads, t2 = _sync_ms(lambda: step.gradients(out))
+            m, t3 = _sync_ms(lambda: step.apply(state, out, grads))
+            parts, t = (t1, t2, t3), t1 + t2 + t3
+            split.append(parts)
+        times.append(t)
+        losses.append(m["loss"].item())
+        skipped += m["skipped_nonfinite"].item()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first, last5 = losses[0], sum(losses[-5:]) / 5
+    log(f"  30 steps on one batch: loss {first:.4f} -> mean of the last 5 "
+        f"{last5:.4f}; skipped {skipped:.0f}; losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    if not (all(x == x and abs(x) < float("inf") for x in losses)
+            and skipped == 0 and last5 < first):
+        raise AssertionError(f"training did not run clean: {losses}, "
+                             f"skipped {skipped}")
+    med = _median(times[:25])
+    fwd, bwd, opt = (_median([p[j] for p in split]) for j in range(3))
+    log(f"  train step (bs={TRAIN_BS}, bf16), median of 25: {med:.2f} ms = "
+        f"{TRAIN_BS / med * 1e3:.2f} samples/s; split (median of 5, synced "
+        f"between stages): forward + loss {fwd:.2f} ms, backward {bwd:.2f} "
+        f"ms, guard + optimizer {opt:.2f} ms; peak memory {peak:.2f} GiB")
+    plain_times, kern_times = [], []
+    for _ in range(3):
+        with plain_kernels():
+            plain_times.append(_sync_ms(lambda: step(state, batch))[1])
+        kern_times.append(_sync_ms(lambda: step(state, batch))[1])
+    log(f"  full train step, kernels vs plain versions (alternating, median "
+        f"of 3): {_median(kern_times):.2f} ms vs {_median(plain_times):.2f} "
+        f"ms")
+    profile_steps(lambda: step(state, batch), 3)
+    return counts
+
+
+def profile_steps(fn, n):
+    """Device busy time of n calls of fn under torch.profiler: the sum of
+    the device's own kernel and copy time against the wall time of the
+    window, and the five largest kernels. The profiler slows the host, so
+    the idle share it shows is an upper bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        _, wall = _sync_ms(lambda: [fn() for _ in range(n)])
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    # device-side rows only: a CPU op's own device time is the time of the
+    # kernels it launches, which would count them twice
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in rows) / 1e3
+    rows.sort(key=dev_us, reverse=True)
+    top = "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3 / n:.2f} ms x"
+                    f"{e.count // n}" for e in rows[:5])
+    log(f"  profiled {n} train steps: wall {wall / n:.2f} ms/step, device "
+        f"busy {busy / n:.2f} ms/step, idle share {1 - busy / wall:.3f}; "
+        f"largest per step: {top}")
+
+
+TRAIN_CONFIG = ("schema.override(schema.Config(dataset='synthetic'),\n"
+                "                           **{'train.start_pose_epoch': 0})")
+
+
+def run_train_cli(config_expr=TRAIN_CONFIG):
+    """Phase 8: the training CLI, one debug epoch with the pose branch, on
+    the config `config_expr` builds (the shipped one, the pose branch from
+    epoch 0)."""
+    from pose_estimation_tpu_torch import cli
+    out_dir = ROOT / "build" / "smoke"
+    run_dir = out_dir / "train_run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cfg_file = out_dir / "train_config.py"
+    cfg_file.write_text(
+        "from pose_estimation_tpu_torch.configs import schema\n"
+        "from pose_estimation_tpu_torch.configs.schema import (  # noqa\n"
+        "    Gcn3dConfig, HeadConfig)\n\n\n"
+        f"def get_config():\n    return {config_expr}\n")
+    t0 = time.perf_counter()
+    cli.main(["--config", str(cfg_file), "--synthetic", "--debug",
+              "--epochs", "1", "--frames_per_object", "2",
+              "--log_dir", str(run_dir)])
+    wall = time.perf_counter() - t0
+    train = [json.loads(x) for x in
+             (run_dir / "train.jsonl").read_text().splitlines()]
+    evals = [json.loads(x) for x in
+             (run_dir / "eval.jsonl").read_text().splitlines()]
+    log(f"  cli.py: {len(train)} train record(s), first {train[0]}; eval "
+        f"{evals[-1]}; {wall:.1f} s")
+    if not (train and train[0]["loss_add"] > 0 and evals
+            and "add_dis" in evals[-1]):
+        raise AssertionError("training CLI wrote no train or eval records")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -402,11 +645,13 @@ def main() -> int:
         elif "Used" in line and "registers" in line:
             log(f"    ptxas {name}: {line.split(':', 1)[1].strip()}; {spill}")
 
-    log("[3] kernels vs plain versions (bs=32, serving-path shapes)")
+    log("[3] kernels vs plain versions (bs=32 serving shapes; bs=8 train "
+        "shapes for min_dists)")
     g = torch.Generator(device=dev).manual_seed(0)
     results = {"linear_multi": check_linear(dev, g),
                "surface_multi": check_surface(dev, g),
-               "knn": check_knn(dev, g)}
+               "knn": check_knn(dev, g),
+               "min_dists": check_min_dists(dev, g)}
 
     from pose_estimation_tpu_torch.configs import schema
     cfg = schema.Config()
@@ -421,6 +666,12 @@ def main() -> int:
     log("[6] serving CLI, 64 synthetic frames at batch 32")
     run_cli(cfg)
 
+    log("[7] full-width KRRN training step (schema.Config(), bf16, bs=8)")
+    train_counts = train_full_width(cfg, dev)
+
+    log("[8] training CLI, one debug epoch (synthetic, pose branch on)")
+    run_train_cli()
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax",
                                            "pose_estimation_tpu"))
@@ -431,7 +682,8 @@ def main() -> int:
     for name, (src, tpu) in KERNELS.items():
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": tpu, "launches": counts[name],
+                        "replaces": tpu, "launches": train_counts[name],
+                        "serve_launches": counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"]})
     print(json.dumps({"kernels": kernels}))

@@ -8,15 +8,21 @@ tests compare like with like.
 Layout:
   configs         the config schema (the JAX package's, field for field)
   core/geometry   rotations, intrinsics, Kabsch, affine crop sampling
-  core/pointops   KNN / gathers / neighbour directions (KNN -> ops.pointops)
+  core/pointops   KNN, nearest source point, gathers, neighbour directions
+                  (KNN and nearest -> ops.pointops)
   core/solvers    batched EPnP (hypothesis grade), LM, PnP-RANSAC
-  ops             hand-written CUDA kernels + their plain PyTorch versions
+  ops             hand-written CUDA kernels + their plain PyTorch versions,
+                  the autograd.Functions that train through them
   csrc            CUDA sources, built at first use (ops/_build.py)
   models          HRNet, KRRN heads, 3D-GCN FusionNetLite, TBase
-  metrics         ADD(-S), pose accuracy
-  data            synthetic frames, eval-time sample preparation, batching
+  losses          map losses, ADD(-S) pose loss, the KRRN aggregate
+  metrics         ADD(-S), pose accuracy, ADD AUC, the per-object table
+  data            synthetic frames, sample preparation, batching, prefetch
   serve           the two-stage image -> pose serving program
-  convert         JAX ('/'-joined npz) params -> torch state_dict
+  train           Ranger, train state, train step, checkpoints, trainer
+  cli             the training command line (synthetic data)
+  convert         JAX ('/'-joined npz) params and parameter-shaped trees
+                  -> torch
   tools/infer     serving CLI (JSONL per frame)
 
 It imports torch and nothing of JAX or of the JAX package; its tests

@@ -11,6 +11,12 @@ converting the leaf by the module it belongs to:
   Dense_*/kernel          [in, out] -> [out, in]
   GroupNorm_*/scale       -> weight
   bias, directions, weights (3D-GCN raw params)   unchanged
+
+The rule is by key and shape only, so it converts any parameter-shaped
+tree the same way: gradients, Ranger's moments (mu, nu) and Lookahead's
+slow weights (`tree_to_torch`). `flax_axis0_dim` says where flax's axis 0
+of a leaf lands in the port's layout (gradient centralisation groups by
+it, train/optim.py).
 """
 
 from __future__ import annotations
@@ -87,6 +93,39 @@ def flax_to_torch(flat: dict[str, np.ndarray],
                 raise ValueError(f"{k}: shape {tuple(v.shape)} != "
                                  f"{tuple(want[k].shape)}")
     return out
+
+
+def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested mapping of arrays (flax params, gradients, optimizer
+    moments) -> the '/'-joined flat dict of save_params_npz."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if hasattr(v, "items"):
+            out.update(flatten_tree(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def tree_to_torch(tree) -> dict[str, torch.Tensor]:
+    """Any parameter-shaped nested tree -> {port parameter name: tensor}."""
+    return flax_to_torch(flatten_tree(tree))
+
+
+def flax_axis0_dim(name: str) -> int:
+    """The dim of the port's tensor `name` (a state_dict key) that holds
+    flax's axis 0 of the same leaf: a conv kernel's row (HWIO -> OIHW, and
+    the transposed conv's [in, out, kh, kw]) is dim 2, a Dense kernel's
+    input is dim 1, everything else keeps its layout."""
+    parts = name.split(".")
+    module = parts[-2] if len(parts) > 1 else ""
+    if parts[-1] == "weight" and module.startswith(("Conv_",
+                                                    "ConvTranspose_")):
+        return 2
+    if parts[-1] == "weight" and module.startswith("Dense_"):
+        return 1
+    return 0
 
 
 def load_flax_params(model: torch.nn.Module, flat: dict) -> torch.nn.Module:

@@ -1,8 +1,10 @@
 """Point-cloud neighbourhood ops (counterpart of core/pointops/neighbors.py).
 
-Batched over leading dims, [..., N, 3] clouds. The two KNN searches
-dispatch to the hand-written kernel in ops.pointops (its plain PyTorch
-version for CPU tensors); the rest is plain PyTorch.
+Batched over leading dims, [..., N, 3] clouds. The two KNN searches,
+nearest_index and min_dists ([B, N, 3] clouds) dispatch to the
+hand-written kernels in ops.pointops (their plain PyTorch versions for CPU
+tensors), through the module attribute so that a caller can swap a
+wrapper; the rest is plain PyTorch.
 """
 
 from __future__ import annotations
@@ -28,12 +30,18 @@ def knn_indices_cross(queries: torch.Tensor, keys: torch.Tensor, k: int,
     return _kops.knn(queries, keys, k, exclude_self)
 
 
+def nearest_index(target: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
+    """Index of the nearest source point: [B, n1, 3], [B, n2, 3] ->
+    [B, n1] int32 (gcn3d.get_nearest_index semantics, ties to the lower
+    index)."""
+    return _kops.nearest_index(target, source)
+
+
 def min_dists(target: torch.Tensor, source: torch.Tensor,
               eps: float = 1e-8) -> torch.Tensor:
-    """Distance to the nearest source point [..., n1], sqrt clamped at
-    eps^2 inside (grad-safe at coincident points)."""
-    d = pairwise_sqdist(target, source)
-    return torch.sqrt(torch.clamp(d.min(dim=-1).values, min=eps * eps))
+    """Distance to the nearest source point [B, n1], sqrt clamped at
+    eps^2 inside (grad-safe at coincident points); differentiable."""
+    return _kops.min_dists(target, source, eps)
 
 
 def gather_neighbors(features: torch.Tensor,

@@ -78,6 +78,16 @@ def make_batch(dataset, indices, generator: torch.Generator | None = None,
     return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
 
 
+def epoch_indices(generator: torch.Generator, num_samples: int,
+                  batch_size: int) -> np.ndarray:
+    """Shuffled index batches [n_batches, batch_size] for one training
+    epoch: one permutation from `generator`, the tail shorter than a batch
+    dropped (one process; the multi-GPU slice adds the shards)."""
+    perm = torch.randperm(num_samples, generator=generator).numpy()
+    n_batches = num_samples // batch_size
+    return perm[: n_batches * batch_size].reshape(n_batches, batch_size)
+
+
 def eval_indices(num_samples: int, batch_size: int, shard_count: int = 1,
                  shard_index: int = 0):
     """Deterministic full-coverage eval batches (indices, valid); the last

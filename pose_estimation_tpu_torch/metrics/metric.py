@@ -1,8 +1,10 @@
 """Pose metrics (counterpart of metrics/metric.py): ADD(-S) and the
-accept/reject bits, batched."""
+accept/reject bits, batched; ADD AUC and the per-object table on the host.
+ADD-S runs the nearest-source kernel (core.pointops.min_dists)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pose_estimation_tpu_torch.core.geometry.rotations import (
@@ -44,3 +46,61 @@ def pose_accuracy(pred_r, pred_t, gt_r, gt_t, model_points, sym_mask,
         "add_ok_002": f(dis < 0.02 * diameter),
         "deg_cm_ok": f((rdeg < deg_thresh) & (tm < cm_thresh)),
     }
+
+
+def add_auc(distances: np.ndarray, max_dis: float = 0.1) -> float:
+    """VOC-style ADD AUC: accuracy integrated over distance thresholds in
+    [0, max_dis]. Host-side, once per eval epoch."""
+    d = np.sort(np.asarray(distances).reshape(-1))
+    n = len(d)
+    if n == 0:
+        return 0.0
+    acc = np.cumsum(np.ones(n)) / n
+    valid = d < max_dis
+    if not valid.any():
+        return 0.0
+    d = np.concatenate([[0.0], d[valid], [max_dis]])
+    acc = np.concatenate([[0.0], acc[valid], [acc[valid][-1]]])
+    return float(np.trapezoid(acc, d) / max_dis)
+
+
+class PerObjectAccumulator:
+    """Host-side per-object metric table: feed batched metric dicts and
+    class ids; read a per-object and an overall summary. One process (the
+    cross-process merge belongs to the multi-GPU slice)."""
+
+    def __init__(self, num_cls: int):
+        self.num_cls = num_cls
+        self.reset()
+
+    def reset(self):
+        self.count = np.zeros(self.num_cls)
+        self.sums = {}
+        self.dis_all = [[] for _ in range(self.num_cls)]
+
+    def update(self, cls_ids, metrics: dict):
+        cls_ids = np.asarray(cls_ids).reshape(-1)
+        onehot = np.eye(self.num_cls)[cls_ids]                  # [B, C]
+        self.count += onehot.sum(0)
+        for k, v in metrics.items():
+            v = np.asarray(v, np.float64).reshape(-1)
+            self.sums.setdefault(k, np.zeros(self.num_cls))
+            self.sums[k] += (onehot * v[:, None]).sum(0)
+        for c, d in zip(cls_ids, np.asarray(metrics["add_dis"]).reshape(-1)):
+            self.dis_all[c].append(float(d))
+
+    def summary(self) -> dict:
+        cnt = np.maximum(self.count, 1)
+        per_obj = {
+            str(c): {
+                **{k: float(self.sums[k][c] / cnt[c]) for k in self.sums},
+                "auc": add_auc(np.array(self.dis_all[c]) if self.dis_all[c]
+                               else np.array([np.inf])),
+                "count": int(self.count[c]),
+            }
+            for c in range(self.num_cls) if self.count[c] > 0
+        }
+        total = max(self.count.sum(), 1)
+        overall = {k: float(self.sums[k].sum() / total) for k in self.sums}
+        overall["count"] = int(self.count.sum())
+        return {"per_object": per_obj, "overall": overall}

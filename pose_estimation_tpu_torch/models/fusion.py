@@ -6,7 +6,9 @@ predicted normals share the KNN graph of the cloud; two pooling levels
 N -> N/4 -> N/16; two 9-D fuse ConvLayers; nearest-neighbour upsampling
 back to N. Output [B, N, 1280]. Per forward it launches the KNN kernel 8
 times (3 self searches, 5 in the PoolLayers), the fused linear aggregate
-twice (levels 0 and 1) and the fused surface aggregate once.
+twice (levels 0 and 1), the fused surface aggregate once and the
+nearest-source kernel twice (the two up-sampling maps). A `generator`
+(training) makes the five PoolLayer subsamples random draws.
 """
 
 from __future__ import annotations
@@ -72,12 +74,11 @@ class FusionNetLite(Named):
             neighbor_num, support_num, dtype)
         for _ in range(3):
             self.child(_Stream(128, 128, 128, support_num, norm, dtype))
-        self.pools = [PoolLayer(4, 4) for _ in range(4)] + [
-            PoolLayer(4, 4, return_sample=True)]
+        self.pools = [PoolLayer(4, 4) for _ in range(5)]
         self.child(ConvLayer(384, 512, support_num, point_dim=9, dtype=dtype))
         self.child(ConvLayer(512, 512, support_num, point_dim=9, dtype=dtype))
 
-    def forward(self, vertices, xyz, normal):
+    def forward(self, vertices, xyz, normal, generator=None):
         k, s = self.neighbor_num, self.support_num
         vertices = vertices.detach().contiguous()
         streams = [self._Stream_0, self._Stream_1, self._Stream_2]
@@ -88,28 +89,31 @@ class FusionNetLite(Named):
         feat_9d = torch.cat([vertices, xyz, normal], -1)       # [B,N,9]
 
         pool_v, pool_x, pool_n, pool_c1, pool_c2 = self.pools
-        v_p1, f_p1_v = pool_v(vertices, fm_1[0])
-        x_p1, f_p1_x = pool_x(xyz, fm_1[1])
-        n_p1, f_p1_n = pool_n(normal, fm_1[2])
-        pool_1, _ = pool_c1(feat_9d, feat_1)
+        g = generator
+        v_p1, f_p1_v = pool_v(vertices, fm_1[0], generator=g)
+        x_p1, f_p1_x = pool_x(xyz, fm_1[1], generator=g)
+        n_p1, f_p1_n = pool_n(normal, fm_1[2], generator=g)
+        pool_1, _ = pool_c1(feat_9d, feat_1, generator=g)
 
         k1 = max(1, min(k, v_p1.shape[1] // 8))
         idx1 = po.knn_indices(v_p1.contiguous(), k1)
         fm_2 = _fused_level1(streams, idx1, [v_p1, x_p1, n_p1],
                              [f_p1_v, f_p1_x, f_p1_n], s)
         feat_2 = torch.cat(fm_2, -1)                           # [B,N/4,384]
-        pool_2, f_pool_2, s2 = pool_c2(pool_1, feat_2)
+        pool_2, f_pool_2 = pool_c2(pool_1, feat_2, generator=g)
 
         k2 = max(1, min(k, pool_2.shape[1] // 8))
         idx2 = po.knn_indices(pool_2[..., :3].contiguous(), k2)
         fm_4 = self.ConvLayer_0(idx2, pool_2, f_pool_2)
         fm_5 = self.ConvLayer_1(idx2, pool_2, fm_4)
 
-        # pool_2 rows are a subsample (s2) of pool_1 rows: one [N, N/4]
-        # distance matrix serves both nearest-neighbour upsample maps
-        d1 = po.pairwise_sqdist(vertices, pool_1[..., :3])
-        near_1 = torch.argmin(d1, dim=-1)
-        near_2 = torch.argmin(d1[..., s2], dim=-1)
+        # nearest-neighbour upsample maps; pool_2's rows are a subsample of
+        # pool_1's, so near_2 sees the distances the JAX package's
+        # d1[..., s2] holds, element for element
+        near_1 = po.nearest_index(vertices, pool_1[..., :3].detach()
+                                  .contiguous())
+        near_2 = po.nearest_index(vertices, pool_2[..., :3].detach()
+                                  .contiguous())
         feat_2_up = po.gather_rows(feat_2, near_1)
         fm_5_up = po.gather_rows(fm_5, near_2)
         return torch.cat([fm_5_up, feat_1, feat_2_up], -1)

@@ -86,18 +86,26 @@ class ConvLayer(nn.Module):
 
 class PoolLayer(nn.Module):
     """Subsample, then max-pool features over the 4 nearest neighbours of
-    each sampled point (excluding itself). Eval subsample: every
-    pooling_rate-th point; `sample` may be injected (tests, training)."""
+    each sampled point (excluding itself). With a `generator` (training)
+    the subsample is the head of one random permutation shared across the
+    batch (torch.randperm, as the reference's Pool_layer); without one
+    (eval) every pooling_rate-th point. An injected `sample` wins over
+    both (tests)."""
 
     def __init__(self, pooling_rate=4, neighbor_num=4, return_sample=False):
         super().__init__()
         self.pooling_rate, self.neighbor_num = pooling_rate, neighbor_num
         self.return_sample = return_sample
 
-    def forward(self, vertices, feature_map, sample=None):
+    def forward(self, vertices, feature_map, sample=None, generator=None):
         n = vertices.shape[-2]
-        if sample is None:
-            sample = torch.arange(n // self.pooling_rate,
+        pool_num = n // self.pooling_rate
+        if sample is None and generator is not None:
+            sample = torch.randperm(n, generator=generator,
+                                    device=generator.device)[:pool_num]
+            sample = sample.to(vertices.device)
+        elif sample is None:
+            sample = torch.arange(pool_num,
                                   device=vertices.device) * self.pooling_rate
         v_s = vertices[:, sample]
         idx = po.knn_indices_cross(v_s[..., :3].contiguous(),

@@ -97,8 +97,13 @@ class KRRN(Named):
         self.child(PoseNet(1280 + num_cls, False, m.posenet.out_t, m.norm,
                            dtype))
 
-    def forward(self, x, p_emb, choose, cls, opt_pose: bool = True):
+    def forward(self, x, p_emb, choose, cls, opt_pose: bool = True,
+                train: bool = False, generator=None):
+        """train=True draws the PoolLayer subsamples and the TBase dropout
+        mask from `generator` (flax's 'pool' and 'dropout' streams);
+        train=False is the deterministic eval forward."""
         num_cls = self.cfg.module.num_cls
+        gen = generator if train else None
         mo, ro = self.mask_outc, self.region_outc
         feat_quarter, feat_half = self.HRNet_0(
             x.permute(0, 3, 1, 2).to(self.dtype))
@@ -110,11 +115,11 @@ class KRRN(Named):
         nml_emb = _gather_pixels(nml_sel, choose)
         pred_t = t_res = None
         if opt_pose:
-            feat = self.FusionNetLite_0(p_emb, xyz_emb, nml_emb)
+            feat = self.FusionNetLite_0(p_emb, xyz_emb, nml_emb, gen)
             onehot = F.one_hot(cls.long(), num_cls).to(feat.dtype)
             onehot = onehot[:, None, :].expand(*feat.shape[:2], num_cls)
             feat = torch.cat([feat, onehot], -1)
-            _, _, t_res = self.PoseNet_0(feat)
+            _, _, t_res = self.PoseNet_0(feat, train, gen)
             pred_t = torch.mean(p_emb + t_res, dim=1)
         return {
             "xyz": xyz_sel,

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-nvcc compiles every source in csrc/ into one shared library with a plain
-C interface for sm_90a; ctypes loads it. The library goes to
+nvcc compiles every source in csrc/ for sm_90a, one process per source
+started together, and links the objects into one shared library with a
+plain C interface; ctypes loads it. The library goes to
 <checkout>/build/kernels/<hash of the sources and flags>/, so an edit to a
 source triggers a rebuild and a stale build is never loaded. Nothing is
 built when this module is imported: only `library()` builds, and only the
@@ -22,8 +23,8 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v", "-lineinfo"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo"]
 
 _lib = None
 build_seconds: float | None = None     # wall time of this process's build
@@ -32,8 +33,10 @@ build_log: str = ""                    # nvcc's output (-Xptxas -v report)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     "pose_knn": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "pose_min_dists": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "pose_gcn_surface": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
     "pose_gcn_linear": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _P],
@@ -66,6 +69,36 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; their joined output, or raise if any
+    failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    if any(p.returncode for p in procs):
+        raise RuntimeError("nvcc failed:\n" + log)
+    return log
+
+
+def _compile(tmp: Path, so: Path) -> str:
+    """One nvcc per source, all started together, then one link; the .so
+    is moved into place only once it is whole."""
+    nvcc = _nvcc()
+    objs, cmds = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = tmp / (src.stem + ".o")
+        objs.append(str(obj))
+        cmds.append([nvcc] + ARCH_FLAGS + NVCC_FLAGS
+                    + ["-c", str(src), "-o", str(obj)])
+    log = _run_all(cmds)
+    log += _run_all([[nvcc] + ARCH_FLAGS + ["-shared", "-o",
+                                            str(tmp / so.name)] + objs])
+    os.replace(tmp / so.name, so)
+    return log
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source hash has no
     build yet."""
@@ -77,18 +110,9 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = ([_nvcc()] + ARCH_FLAGS + NVCC_FLAGS + ["-o", tmp]
-               + [str(p) for p in _sources() if p.suffix == ".cu"])
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            build_log = _compile(Path(tmp), so)
         (out_dir / "build.log").write_text(build_log)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               + build_log)
-        os.replace(tmp, so)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

@@ -27,8 +27,12 @@ Numerics (the plain versions define them; the kernels follow them):
            theta, the product, the max and the sum are fp32.
 Dot products of 3 terms are summed as (x + y) + z, supports in order.
 
-The wrappers take the plain version for CPU tensors only; a CUDA tensor
-launches the kernel or raises.
+The wrappers take the plain version for CPU tensors only (ordinary
+autograd through it); a CUDA tensor launches the kernel or raises. On the
+card each kernel sits in a torch.autograd.Function whose backward re-runs
+the plain version on the saved inputs and takes its vector-Jacobian
+product, as the JAX package's custom_vjp backwards re-run the XLA forward
+(pallas_gcn.py:410-416,560-563).
 """
 
 from __future__ import annotations
@@ -142,23 +146,34 @@ def _check_cuda(name, ts, dev):
         raise ValueError(f"{name}: unsupported device {dev}")
 
 
-def surface_multi(nds, dirs_list, support_num: int):
-    """Multi-stream ConvSurface aggregate -> list of [B, N, O] fp32."""
-    if _on_cpu(*nds, *dirs_list):
-        return surface_multi_plain(nds, dirs_list, support_num)
-    dev = nds[0].device
-    _check_cuda("surface_multi", list(nds) + list(dirs_list), dev)
+def _split(out: torch.Tensor, streams: int):
+    o = out.shape[-1] // streams
+    return [out[..., si * o:(si + 1) * o] for si in range(streams)]
+
+
+def _groups(ts, streams: int):
+    return [list(ts[i:i + streams]) for i in range(0, len(ts), streams)]
+
+
+def _recompute_vjp(plain, ts, needs, g):
+    """The backward of both Functions: re-run the plain version on the
+    saved inputs with autograd on, and take its vector-Jacobian product
+    with g (the XLA recompute of pallas_gcn._linear_multi_bwd and
+    _surface_multi_bwd)."""
+    leaves = [t.detach().requires_grad_(need and t.is_floating_point())
+              for t, need in zip(ts, needs)]
+    inputs = [t for t in leaves if t.requires_grad]
+    with torch.enable_grad():
+        out = torch.cat(plain(leaves), -1)
+    grads = iter(torch.autograd.grad(out, inputs, g))
+    return [next(grads) if t.requires_grad else None for t in leaves]
+
+
+def _surface_launch(nds, dirs_list, support_num: int) -> torch.Tensor:
     streams = len(nds)
-    b, n, k, d = nds[0].shape
-    so = dirs_list[0].shape[-1]
-    if d != 3 or any(t.shape != nds[0].shape for t in nds):
-        raise ValueError("surface_multi: nds must share one [B, N, K, 3] shape")
-    if any(t.shape != (3, so) for t in dirs_list) or so % support_num:
-        raise ValueError("surface_multi: dirs must be [3, S*O]")
-    for t in list(nds) + list(dirs_list):
-        if t.dtype not in (torch.float32, _BF16):
-            raise TypeError(f"surface_multi: dtype {t.dtype}")
-    o = so // support_num
+    b, n, k, _ = nds[0].shape
+    o = dirs_list[0].shape[-1] // support_num
+    dev = nds[0].device
     nd = torch.stack(nds, dim=3).to(_BF16).contiguous()       # [B,N,K,St,3]
     dirs = torch.stack(dirs_list).to(_BF16).contiguous()      # [St,3,S*O]
     out = torch.empty((b, n, streams * o), dtype=torch.float32, device=dev)
@@ -170,15 +185,75 @@ def surface_multi(nds, dirs_list, support_num: int):
                                   torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "pose_gcn_surface")
     surface_multi.launches += 1
-    return [out[..., si * o:(si + 1) * o] for si in range(streams)]
+    return out
+
+
+class _SurfaceMulti(torch.autograd.Function):
+    """Forward: the kernel, [B, N, streams*O]. Backward: the plain
+    version's vector-Jacobian product (there is no backward kernel: the
+    JAX package has none either)."""
+
+    @staticmethod
+    def forward(ctx, support_num, streams, *ts):
+        ctx.support_num, ctx.streams = support_num, streams
+        ctx.save_for_backward(*ts)
+        nds, dirs_list = _groups(ts, streams)
+        return _surface_launch(nds, dirs_list, support_num)
+
+    @staticmethod
+    def backward(ctx, g):
+        s, st = ctx.support_num, ctx.streams
+        plain = lambda ts: surface_multi_plain(*_groups(ts, st), s)
+        return (None, None, *_recompute_vjp(plain, ctx.saved_tensors,
+                                            ctx.needs_input_grad[2:], g))
+
+
+def surface_multi(nds, dirs_list, support_num: int):
+    """Multi-stream ConvSurface aggregate -> list of [B, N, O] fp32,
+    differentiable in nds and dirs."""
+    if _on_cpu(*nds, *dirs_list):
+        return surface_multi_plain(nds, dirs_list, support_num)
+    dev = nds[0].device
+    _check_cuda("surface_multi", list(nds) + list(dirs_list), dev)
+    streams = len(nds)
+    d = nds[0].shape[-1]
+    so = dirs_list[0].shape[-1]
+    if d != 3 or any(t.shape != nds[0].shape for t in nds):
+        raise ValueError("surface_multi: nds must share one [B, N, K, 3] shape")
+    if any(t.shape != (3, so) for t in dirs_list) or so % support_num:
+        raise ValueError("surface_multi: dirs must be [3, S*O]")
+    for t in list(nds) + list(dirs_list):
+        if t.dtype not in (torch.float32, _BF16):
+            raise TypeError(f"surface_multi: dtype {t.dtype}")
+    out = _SurfaceMulti.apply(support_num, streams, *nds, *dirs_list)
+    return _split(out, streams)
 
 
 surface_multi.launches = 0
 
 
+class _LinearMulti(torch.autograd.Function):
+    """Forward: the kernels, [B, N, streams*O]. Backward: the plain
+    version's vector-Jacobian product; idx gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, support_num, streams, *ts):
+        ctx.support_num, ctx.streams = support_num, streams
+        ctx.save_for_backward(*ts)
+        nds, dirs_list, xs, ws, bs = _groups(ts[:-1], streams)
+        return _linear_launch(nds, dirs_list, xs, ws, bs, ts[-1], support_num)
+
+    @staticmethod
+    def backward(ctx, g):
+        s, st = ctx.support_num, ctx.streams
+        plain = lambda ts: linear_multi_plain(*_groups(ts[:-1], st), ts[-1], s)
+        return (None, None, *_recompute_vjp(plain, ctx.saved_tensors,
+                                            ctx.needs_input_grad[2:], g))
+
+
 def linear_multi(nds, dirs_list, xs, ws, bs, idx, support_num: int):
     """Multi-stream narrow ConvLayer aggregate sharing one gather ->
-    list of [B, N, O] fp32."""
+    list of [B, N, O] fp32, differentiable in nds, dirs, xs, ws and bs."""
     ts = list(nds) + list(dirs_list) + list(xs) + list(ws) + list(bs) + [idx]
     if _on_cpu(*ts):
         return linear_multi_plain(nds, dirs_list, xs, ws, bs, idx,
@@ -205,6 +280,21 @@ def linear_multi(nds, dirs_list, xs, ws, bs, idx, support_num: int):
             or so % support_num):
         raise ValueError("linear_multi: ws [Cin, S*O], bs [S*O], dirs "
                          "[3, S*O] expected")
+    out = _LinearMulti.apply(support_num, streams, *ts)
+    return _split(out, streams)
+
+
+linear_multi.launches = 0
+
+
+def _linear_launch(nds, dirs_list, xs, ws, bs, idx, support_num: int):
+    dt = xs[0].dtype
+    dev = idx.device
+    streams = len(nds)
+    b, n, k = idx.shape
+    m = xs[0].shape[1]
+    so = ws[0].shape[-1]
+    cin = xs[0].shape[2]
     o = so // support_num
     nd = torch.stack(nds, dim=3).to(dt).contiguous()          # [B,N,K,St,3]
     dirs = torch.stack(dirs_list).to(dt).contiguous()         # [St,3,S*O]
@@ -222,7 +312,4 @@ def linear_multi(nds, dirs_list, xs, ws, bs, idx, support_num: int):
             1 if dt == _BF16 else 0, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "pose_gcn_linear")
     linear_multi.launches += 1
-    return [out[..., si * o:(si + 1) * o] for si in range(streams)]
-
-
-linear_multi.launches = 0
+    return out

@@ -1,13 +1,21 @@
-"""K nearest neighbours: the hand-written CUDA kernel and its plain version.
+"""Point-cloud kernels: K nearest neighbours and the nearest source point,
+each a hand-written CUDA kernel beside its plain version.
 
-Kernel: csrc/knn.cu (`pose_knn`). It replaces
-pose_estimation_tpu/ops/pallas_pointops.py:_knn_kernel and serves both the
-self searches of FusionNetLite (fusion.py:118,148,158) and the cross
-searches of PoolLayer (gcn3d.py:146). What bounds it on the card, and its
-design, are described at the top of the source.
+  knn      csrc/knn.cu (`pose_knn`), replacing pose_estimation_tpu/ops/
+           pallas_pointops.py:_knn_kernel: the self searches of
+           FusionNetLite (fusion.py:118,148,158) and the cross searches of
+           PoolLayer (gcn3d.py:146).
+  nearest  csrc/min_dists.cu (`pose_min_dists`), replacing
+           pallas_pointops.py:_min_dists_kernel: distance to and index of
+           the nearest source point. `min_dists` (ADD-S, the symmetric pose
+           loss) puts it in a torch.autograd.Function; `nearest_index`
+           (FusionNetLite's up-sampling maps) takes the index.
+What bounds each kernel on the card, and its design, are described at the
+top of its source.
 
-`knn` is the wrapper: the plain PyTorch version for CPU tensors, the
-kernel for CUDA tensors (or an exception; there is no fallback).
+`knn` and `nearest` are the wrappers: the plain PyTorch version for CPU
+tensors, the kernel for CUDA tensors (or an exception; there is no
+fallback). Each counts its launches.
 """
 
 from __future__ import annotations
@@ -74,3 +82,102 @@ def knn(queries: torch.Tensor, keys: torch.Tensor, k: int,
 
 
 knn.launches = 0
+
+
+def _check_clouds(name, target, source):
+    if target.device.type != "cuda" or source.device != target.device:
+        raise ValueError(f"{name}: tensors on {target.device} / "
+                         f"{source.device}")
+    for what, t in (("target", target), ("source", source)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {what} must be float32, got {t.dtype}")
+        if t.ndim != 3 or t.shape[-1] != 3:
+            raise ValueError(f"{name}: {what} must be [B, n, 3], got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    if source.shape[0] != target.shape[0]:
+        raise ValueError(f"{name}: batch sizes differ")
+
+
+def nearest_plain(target: torch.Tensor, source: torch.Tensor,
+                  eps: float = 1e-8):
+    """[B, n, 3], [B, m, 3] -> (sqrt(max(min_j d, eps^2)) [B, n] fp32,
+    argmin_j d [B, n] int32), d the expanded-form squared distance of
+    `sqdist`; ties go to the lower index (torch.min, like jnp.argmin)."""
+    best, idx = torch.min(sqdist(target, source), dim=-1)
+    return torch.sqrt(torch.clamp(best, min=eps * eps)), idx.to(torch.int32)
+
+
+def nearest(target: torch.Tensor, source: torch.Tensor, eps: float = 1e-8):
+    """Distance to, and index of, the nearest source point of each target:
+    ([B, n] fp32, [B, n] int32). No gradient: `min_dists` carries one."""
+    if target.device.type == "cpu" and source.device.type == "cpu":
+        return nearest_plain(target, source, eps)
+    _check_clouds("nearest", target, source)
+    b, n, _ = target.shape
+    dist = torch.empty((b, n), dtype=torch.float32, device=target.device)
+    idx = torch.empty((b, n), dtype=torch.int32, device=target.device)
+    lib = _build.library()
+    with torch.cuda.device(target.device):
+        rc = lib.pose_min_dists(target.data_ptr(), source.data_ptr(),
+                                dist.data_ptr(), idx.data_ptr(), b, n,
+                                source.shape[1], eps * eps,
+                                torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "pose_min_dists")
+    nearest.launches += 1
+    return dist, idx
+
+
+nearest.launches = 0
+
+
+def nearest_index(target: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
+    """Index [B, n] int32 of the nearest source point of each target."""
+    return nearest(target, source)[1]
+
+
+class _MinDists(torch.autograd.Function):
+    """min_dists with the gradient jax.grad gives through
+    neighbors.min_dists (sqrt(max(min_j d, eps^2)), d in expanded form):
+
+      d target_i = g_i (t_i - s_idx_i) / dist_i   where best_i > eps^2,
+                   0 where the clamp is active;
+      d source   = -(d target), scatter-added at idx.
+
+    The divisor is the forward's own distance, and best_i is recomputed in
+    the forward's operation order, so the clamp test sees the value the
+    forward clamped. Exactly tied minima: JAX splits the gradient evenly
+    between them, this form gives it all to the lower index."""
+
+    @staticmethod
+    def forward(ctx, target, source, eps):
+        dist, idx = nearest(target, source, eps)
+        ctx.save_for_backward(target, source, dist, idx)
+        ctx.eps = eps
+        return dist
+
+    @staticmethod
+    def backward(ctx, g):
+        target, source, dist, idx = ctx.saved_tensors
+        rows = idx.long()[..., None].expand(-1, -1, 3)
+        s = torch.gather(source, 1, rows)
+        t0, t1, t2 = target.unbind(-1)
+        s0, s1, s2 = s.unbind(-1)
+        best = ((t0 * t0 + t1 * t1 + t2 * t2) + (s0 * s0 + s1 * s1 + s2 * s2)
+                - 2.0 * (t0 * s0 + t1 * s1 + t2 * s2))
+        live = (best > ctx.eps * ctx.eps)[..., None]
+        gt = torch.where(live, g[..., None] * (target - s) / dist[..., None],
+                         torch.zeros_like(target))
+        gs = None
+        if ctx.needs_input_grad[1]:
+            gs = torch.zeros_like(source).scatter_add_(1, rows, -gt)
+        return (gt if ctx.needs_input_grad[0] else None), gs, None
+
+
+def min_dists(target: torch.Tensor, source: torch.Tensor,
+              eps: float = 1e-8) -> torch.Tensor:
+    """Distance [B, n] from each target point to its nearest source point,
+    clamped at eps inside the sqrt (grad-safe at coincident points);
+    differentiable in both clouds."""
+    return _MinDists.apply(target, source, eps)

@@ -1,0 +1,100 @@
+"""The KRRN training step on one device (counterpart of
+parallel/train_step.py:29-35,98-173; the multi-GPU step is a later slice).
+
+  batch -> (offset-decode target rewrite) -> KRRN forward (train draws
+  from the state's generator) -> krrn_loss -> gradients of every
+  parameter -> NaN guard -> Ranger update, in place.
+
+The NaN guard is the JAX package's, to the letter: the global gradient
+norm is taken before clipping; when it or the loss is not finite the
+gradients are zeroed and the update still runs, so the moments, the count
+and Lookahead's count all advance; the step reports skipped_nonfinite.
+Nothing in the step waits for the device: its metrics stay tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pose_estimation_tpu_torch.configs.schema import Config
+from pose_estimation_tpu_torch.losses.pose_loss import krrn_loss
+from pose_estimation_tpu_torch.train.state import TrainState
+
+
+def loss_weights_dict(cfg: Config) -> dict:
+    lw = cfg.train.loss
+    return {"weight_xyz": lw.weight_xyz, "weight_region": lw.weight_region,
+            "weight_mask": lw.weight_mask, "weight_normal": lw.weight_normal,
+            "weight_pose": lw.weight_pose}
+
+
+def offset_targets(batch: dict) -> dict:
+    """xyz targets as offsets from the gt region's centre (0 off the
+    labelled pixels): what the xyz head learns when
+    cfg.module.xyz_offset_decode is set."""
+    b, h, w = batch["region"].shape
+    rows = batch["region"].long().reshape(b, h * w, 1).expand(-1, -1, 3)
+    base = torch.gather(batch["region_points"], 1, rows).reshape(b, h, w, 3)
+    batch = dict(batch)
+    batch["xyz"] = torch.where(batch["valid"][..., None],
+                               batch["xyz"] - base,
+                               torch.zeros_like(batch["xyz"]))
+    return batch
+
+
+class TrainStep:
+    """step(state, batch, opt_pose=True, train=True) -> metrics dict of
+    0-d device tensors (the loss terms, skipped_nonfinite and grad_norm,
+    the global norm before clipping). `train=False` runs the
+    deterministic eval forward (strided pools, no dropout). The three
+    stages are methods of their own: `losses`, `gradients`, `apply`."""
+
+    def __init__(self, model, tx, cfg: Config):
+        if cfg.train.refine:
+            raise NotImplementedError("train.refine (the differentiable-PnP "
+                                      "loss) is not ported")
+        if cfg.module.norm == "bn":
+            raise NotImplementedError("norm='bn' is not ported")
+        self.model, self.tx, self.cfg = model, tx, cfg
+        self.weights = loss_weights_dict(cfg)
+
+    def losses(self, batch: dict, opt_pose: bool = True, train: bool = True,
+               generator=None) -> dict:
+        if self.cfg.module.xyz_offset_decode:
+            batch = offset_targets(batch)
+        out = self.model(batch["img"], batch["cloud"], batch["choose"],
+                         batch["cls"], opt_pose=opt_pose, train=train,
+                         generator=generator)
+        return krrn_loss(out, batch, self.weights, opt_pose=opt_pose)
+
+    def gradients(self, losses: dict) -> dict:
+        """Gradient of the total loss for every parameter; zeros for the
+        ones the loss does not reach (the pose branch without opt_pose),
+        as jax.grad gives."""
+        names, params = zip(*self.model.named_parameters())
+        grads = torch.autograd.grad(losses["loss"], params,
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        return dict(zip(names, grads))
+
+    def apply(self, state: TrainState, losses: dict, grads: dict) -> dict:
+        with torch.no_grad():
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                                   for g in grads.values()))
+            finite = torch.isfinite(losses["loss"]) & torch.isfinite(gnorm)
+            grads = {k: torch.where(finite, g, torch.zeros_like(g))
+                     for k, g in grads.items()}
+        state.apply_gradients(self.tx, grads)
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["skipped_nonfinite"] = (~finite).float()
+        metrics["grad_norm"] = gnorm
+        return metrics
+
+    def __call__(self, state: TrainState, batch: dict, opt_pose: bool = True,
+                 train: bool = True) -> dict:
+        losses = self.losses(batch, opt_pose, train, state.generator)
+        return self.apply(state, losses, self.gradients(losses))
+
+
+def build_train_step(model, tx, cfg: Config) -> TrainStep:
+    return TrainStep(model, tx, cfg)

@@ -1,0 +1,180 @@
+"""Trainer (counterpart of train/trainer.py): epoch loops, eval with the
+on-device pose recovery of serve.EvalStep, best-model tracking, manual LR
+decay, checkpoints, JSONL metrics. One device (cuda when available, else
+the CPU); the multi-GPU trainer is a later slice, as are the TensorBoard
+mirror and the eval overlay images (utils/tb, utils/viz).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from pose_estimation_tpu_torch.configs.schema import Config
+from pose_estimation_tpu_torch.data.batching import (
+    epoch_indices, eval_indices)
+from pose_estimation_tpu_torch.data.prefetch import prefetched_epoch
+from pose_estimation_tpu_torch.metrics.metric import PerObjectAccumulator
+from pose_estimation_tpu_torch.models.krrn import KRRN
+from pose_estimation_tpu_torch.serve import build_eval_step
+from pose_estimation_tpu_torch.train.checkpoint import CheckpointManager
+from pose_estimation_tpu_torch.train.guards import TrainGuard
+from pose_estimation_tpu_torch.train.optim import make_optimizer
+from pose_estimation_tpu_torch.train.state import TrainState
+from pose_estimation_tpu_torch.train.train_step import build_train_step
+
+
+class MetricsLogger:
+    """Appends one JSON record per call to log_dir/<name>.jsonl."""
+
+    def __init__(self, log_dir: str, name: str = "train"):
+        os.makedirs(log_dir, exist_ok=True)
+        self.path = os.path.join(log_dir, f"{name}.jsonl")
+
+    def log(self, step: int, payload: dict, echo: bool = False):
+        rec = {"step": int(step), "time": time.time()}
+        rec.update({k: (float(v) if isinstance(v, (int, float, np.floating,
+                                                   torch.Tensor))
+                        and not isinstance(v, bool) else v)
+                    for k, v in payload.items()})
+        with open(self.path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        if echo:
+            print(json.dumps(rec), flush=True)
+
+
+def _generator(seed: int, stream: int, epoch: int, device="cpu"):
+    """A generator per (stream, epoch), as the JAX trainer folds the epoch
+    into a per-stream key."""
+    return torch.Generator(device=device).manual_seed(
+        (seed * 1000 + stream) * 1_000_003 + epoch)
+
+
+class Trainer:
+    def __init__(self, cfg: Config, dataset, log_dir: str = "runs/default",
+                 resume: str | None = None):
+        self.cfg = cfg
+        self.dataset = dataset
+        self.device = torch.device(
+            "cuda" if torch.cuda.is_available() else "cpu")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.manual_seed(cfg.seed)
+        dtype = torch.bfloat16 if cfg.train.amp else torch.float32
+        self.model = KRRN(cfg, dtype=dtype).to(self.device)
+        steps_per_epoch = max(1, len(dataset) // cfg.train.batch_size)
+        self.tx = make_optimizer(
+            cfg, total_steps=steps_per_epoch * cfg.train.num_epoch)
+        self.train_step = build_train_step(self.model, self.tx, cfg)
+        self.eval_step = build_eval_step(self.model, cfg)
+        self.log = MetricsLogger(log_dir, "train")
+        self.eval_log = MetricsLogger(log_dir, "eval")
+        self.ckpt = CheckpointManager(os.path.join(log_dir, "ckpt"))
+        self.resume = resume
+        self.guard = TrainGuard(ckpt_manager=self.ckpt)
+        self.state = None
+
+    def init_state(self) -> TrainState:
+        """A fresh state (the model's seeded random weights), then the
+        latest checkpoint of `resume`, or of this run's own directory,
+        loaded into it when there is one."""
+        gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
+        self.state = TrainState.create(self.model, self.tx, gen)
+        source = (CheckpointManager(self.resume) if self.resume
+                  else self.ckpt)
+        source.restore(self.state)
+        return self.state
+
+    def _to_device(self, batch: dict) -> dict:
+        return {k: v.to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def train_epoch(self, epoch: int, steps: int | None = None):
+        cfg = self.cfg
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+        gen = _generator(cfg.seed, 1, epoch)
+        batches = epoch_indices(gen, len(self.dataset), cfg.train.batch_size)
+        if steps is not None:
+            batches = batches[:steps]
+        opt_pose = (cfg.train.enable_pose
+                    and epoch >= cfg.train.start_pose_epoch)
+        t0 = time.time()
+        stream = prefetched_epoch(self.dataset, batches, gen,
+                                  cfg.data.input_size, cfg.data.num_points)
+        prev = None     # the guard reads the previous step's metrics, so
+        try:            # the host never waits for the current step
+            for bi, batch in enumerate(stream):
+                metrics = self.train_step(self.state, self._to_device(batch),
+                                          opt_pose=opt_pose)
+                if prev is not None and self.guard.observe(
+                        self.state.step - 1, prev, train_state=self.state):
+                    self.log.log(self.state.step,
+                                 {"epoch": epoch, "aborted_divergence": 1.0},
+                                 echo=True)
+                    break
+                prev = metrics
+                if bi % 20 == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m["epoch"] = epoch
+                    m["sec_per_step"] = (time.time() - t0) / (bi + 1)
+                    self.log.log(self.state.step, m)
+                if (cfg.train.ckpt_every
+                        and self.state.step % cfg.train.ckpt_every == 0):
+                    self.ckpt.save(self.state.step, self.state,
+                                   metrics={"periodic": 1.0})
+        finally:
+            stream.close()
+        return self.state
+
+    def test_epoch(self, epoch: int, max_batches: int | None = None):
+        """Full-coverage eval: every test sample once, in order; the last
+        batch's padding is masked out of the accumulator."""
+        cfg = self.cfg
+        acc = PerObjectAccumulator(cfg.module.num_cls)
+        batches, valid = eval_indices(len(self.dataset),
+                                      cfg.train.batch_size)
+        if max_batches is not None:
+            batches, valid = batches[:max_batches], valid[:max_batches]
+        solve_gen = _generator(cfg.seed, 2, epoch, self.device)
+        stream = prefetched_epoch(self.dataset, batches,
+                                  _generator(cfg.seed, 3, epoch),
+                                  cfg.data.input_size, cfg.data.num_points)
+        try:
+            for bi, batch in enumerate(stream):
+                out = self.eval_step(self._to_device(batch),
+                                     generator=solve_gen)
+                keep = valid[bi]
+                acc.update(batch["cls"].numpy()[keep],
+                           {k: v.float().cpu().numpy()[keep]
+                            for k, v in out.items() if v.ndim == 1})
+        finally:
+            stream.close()
+        summary = acc.summary()
+        mean_dis = summary["overall"].get("add_dis", float("inf"))
+        self.eval_log.log(self.state.step,
+                          {"epoch": epoch, **summary["overall"]}, echo=True)
+        if mean_dis < self.state.best_dis:
+            self.state.best_dis = float(np.float32(mean_dis))
+            self.ckpt.save(self.state.step, self.state,
+                           metrics={"add_dis": mean_dis})
+        if (cfg.train.lr.scheduler == "manual"
+                and mean_dis < cfg.train.lr.decay_margin):
+            self.state.lr_scale = float(np.float32(
+                self.state.lr_scale * cfg.train.lr.decay_rate))
+        return summary
+
+    def fit(self, num_epochs: int | None = None,
+            steps_per_epoch: int | None = None, eval_every: int = 1):
+        if self.state is None:
+            self.init_state()
+        num_epochs = num_epochs or self.cfg.train.num_epoch
+        for epoch in range(num_epochs):
+            self.train_epoch(epoch, steps_per_epoch)
+            if (epoch + 1) % eval_every == 0:
+                self.test_epoch(epoch)
+        return self.state

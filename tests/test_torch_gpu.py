@@ -126,15 +126,122 @@ def test_tiny_krrn_launch_counts_and_plain_cpu_parity(dev):
     with torch.no_grad():
         ref = model(*cpu_args)
         model.to(dev)
-        for f in (gcn.linear_multi, gcn.surface_multi, pointops.knn):
+        for f in (gcn.linear_multi, gcn.surface_multi, pointops.knn,
+                  pointops.nearest):
             f.launches = 0
         got = model(*[a.to(dev) for a in cpu_args])
     assert (gcn.linear_multi.launches, gcn.surface_multi.launches,
-            pointops.knn.launches) == (2, 1, 8)
+            pointops.knn.launches, pointops.nearest.launches) == (2, 1, 8, 2)
     for key, rtol in (("xyz_emb", 1e-4), ("pred_t", 2e-3)):
         r = ref[key]
         tol = rtol * max(1.0, r.abs().max().item())
         assert (got[key].cpu() - r).abs().max().item() <= tol, key
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 300, 500), (3, 1, 2500),
+                                   (1, 1025, 7), (2, 2048, 2048)])
+def test_nearest_matches_plain(dev, b, n, m):
+    """Ragged target counts, several source tiles: bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    t = torch.randn((b, n, 3), generator=g, device=dev)
+    s = torch.randn((b, m, 3), generator=g, device=dev)
+    t[:, :1] = s[:, :1]                                  # distance 0
+    d, i = pointops.nearest(t, s)
+    dp, ip = pointops.nearest_plain(t, s)
+    assert d.shape == (b, n) and i.dtype == torch.int32
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
+def test_nearest_rejects_what_the_kernel_does_not_take(dev):
+    pts = torch.randn((2, 64, 3), device=dev)
+    with pytest.raises(ValueError):
+        pointops.nearest(pts[:, ::2], pts)                 # not contiguous
+    with pytest.raises(TypeError):
+        pointops.nearest(pts.half(), pts.half())
+    with pytest.raises(ValueError):
+        pointops.nearest(pts, pts.cpu())
+    with pytest.raises(ValueError):
+        pointops.nearest(pts, pts[:1].contiguous())        # batch sizes
+
+
+def test_min_dists_backward_matches_plain_autograd(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    t = torch.randn((2, 400, 3), generator=g, device=dev).requires_grad_()
+    s = torch.randn((2, 300, 3), generator=g, device=dev).requires_grad_()
+    w = torch.rand((2, 400), generator=g, device=dev)
+    got = torch.autograd.grad((pointops.min_dists(t, s) * w).sum(), (t, s))
+    plain = torch.sqrt(torch.clamp(
+        pointops.sqdist(t, s).min(dim=-1).values, min=1e-16))
+    ref = torch.autograd.grad((plain * w).sum(), (t, s))
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+
+
+def test_function_backwards_match_plain_autograd(dev):
+    """The kernels' autograd.Functions: the backward recomputes the plain
+    version, so its gradients are those of autograd through it, up to the
+    order of the atomic adds in the gather's backward (one ulp: 1e-4 in
+    fp32, 2e-2 for bf16 gradients)."""
+    nds, dirs, xs, ws, bs, idx, s = _gcn_inputs(dev, 100, 100, 5)
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        leaves = [[t.clone().requires_grad_() for t in grp]
+                  for grp in (nds, dirs, [x.to(dt) for x in xs], ws, bs)]
+        twins = [[t.detach().clone().requires_grad_() for t in grp]
+                 for grp in leaves]
+        cot = [torch.randn(2, 100, 16, device=dev) for _ in range(3)]
+        torch.autograd.backward(gcn.linear_multi(*leaves, idx, s), cot)
+        torch.autograd.backward(gcn.linear_multi_plain(*twins, idx, s), cot)
+        for grp, tw in zip(leaves, twins):
+            for a, b in zip(grp, tw):
+                torch.testing.assert_close(a.grad, b.grad, rtol=tol,
+                                           atol=tol)
+        surf = [[t.clone().requires_grad_() for t in grp]
+                for grp in (nds, dirs)]
+        stw = [[t.detach().clone().requires_grad_() for t in grp]
+               for grp in surf]
+        torch.autograd.backward(gcn.surface_multi(*surf, s), cot)
+        torch.autograd.backward(gcn.surface_multi_plain(*stw, s), cot)
+        for grp, tw in zip(surf, stw):
+            for a, b in zip(grp, tw):
+                torch.testing.assert_close(a.grad, b.grad, rtol=tol,
+                                           atol=tol)
+
+
+def test_tiny_train_step_launch_counts(dev):
+    from pose_estimation_tpu_torch.train.optim import make_optimizer
+    from pose_estimation_tpu_torch.train.state import TrainState
+    from pose_estimation_tpu_torch.train.train_step import build_train_step
+    cfg = TINY
+    torch.manual_seed(0)
+    model = KRRN(cfg).to(dev)
+    tx = make_optimizer(cfg, total_steps=10)
+    state = TrainState.create(model, tx,
+                              torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.RandomState(1)
+    b, hw, n = 2, 64, 128
+    batch = {
+        "img": rng.rand(b, hw, hw, 3), "cloud": rng.randn(b, n, 3) * 0.05
+        + [0, 0, 0.8], "choose": rng.randint(0, hw * hw, (b, n)),
+        "cls": np.array([0, 1]), "xyz": rng.rand(b, hw, hw, 3),
+        "normal": rng.randn(b, hw, hw, 3), "valid": rng.rand(b, hw, hw) > .5,
+        "region": rng.randint(0, 9, (b, hw, hw)),
+        "multi_cls_mask": rng.randint(0, 3, (b, hw, hw)),
+        "target": rng.randn(b, 50, 3) * 0.05 + [0, 0, 0.8],
+        "model_points": rng.randn(b, 50, 3) * 0.05,
+        "target_r": np.stack([np.eye(3)] * b), "sym_mask": np.array([1., 0.])}
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in
+             batch.items()}
+    batch = {k: (v.float() if v.is_floating_point() else v.long()
+                 if k in ("choose", "cls", "region", "multi_cls_mask") else v)
+             for k, v in batch.items()}
+    for f in (gcn.linear_multi, gcn.surface_multi, pointops.knn,
+              pointops.nearest):
+        f.launches = 0
+    m = build_train_step(model, tx, cfg)(state, batch, opt_pose=True)
+    assert (gcn.linear_multi.launches, gcn.surface_multi.launches,
+            pointops.knn.launches, pointops.nearest.launches) == (2, 1, 8, 3)
+    assert float(m["skipped_nonfinite"]) == 0.0
+    assert all(torch.isfinite(v) for v in m.values())
 
 
 def test_library_is_built_once(dev):
