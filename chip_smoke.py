@@ -7,18 +7,23 @@ Phases (each raises on failure, the script then exits non-zero):
   1. require CUDA; print the card and its power limit (nvidia-smi);
   2. build the port's CUDA kernels from csrc/ (ops/_build.py);
   3. each kernel against its plain PyTorch version on the card, at the
-     serving path's shapes (bs=32) in fp32 and bf16, the nearest-source
-     kernel at the train step's (bs=8) and at 8192 x 8192 points, with its
-     backward: max |error| and the median times of both (CUDA events);
+     serving path's shapes (bs=32) in fp32 and bf16, kernel 1 also at the
+     full FusionNet's level-1 shapes, the nearest-source kernel at the
+     train step's (bs=8) and at 8192 x 8192 points with its backward, the
+     wide-table aggregate at the profiler's shape and at the full
+     FusionNet's fm_4 (S=2) with its backward: max |error|, the median
+     times of both (CUDA events), the least time the card could take
+     (bound) and, where one PyTorch call computes the same function, its
+     time;
   4. the pose stage fed ground-truth normalised coordinates of a synthetic
      batch: mean rotation error < 1 deg and ADD@0.1d >= 0.9;
   5. the shipped schema.Config() KRRN (full HRNet, 13 classes, 1024
      points, bf16 activations, seeded random weights) served through
      serve.build_infer_step on a synthetic bs=32 batch: finite outputs,
      launches per forward exactly 2 (linear aggregate), 1 (surface
-     aggregate), 8 (KNN), 2 (nearest source: the up-sampling maps), the
-     kernel path against the plain path on the same weights and batch,
-     stage times and frames/s;
+     aggregate), 8 (KNN), 2 (nearest source: the up-sampling maps), 0
+     (wide-table aggregate), the kernel path against the plain path on the
+     same weights and batch, stage times and frames/s;
   6. the serving CLI (tools/infer.py) on 64 synthetic frames at batch 32,
      which must write 64 JSONL records;
   7. training at full width (schema.Config(), bf16 activations, bs=8,
@@ -35,6 +40,13 @@ Phases (each raises on failure, the script then exits non-zero):
   8. the training CLI (cli.py --synthetic --debug --epochs 1) with a config
      that starts the pose branch at epoch 0: JSONL train records and an
      eval summary with add_dis;
+  9. phase 5 with the full FusionNet (fusion_variant="full", S=7):
+     launches per forward exactly 3 (linear), 1, 8, 2, 0;
+ 10. the full-fusion model at S=2, full widths otherwise, where its first
+     fuse layer is wide: one serving forward (launches 3/1/8/2/1, against
+     the plain path) and one train step at bs=8 (launches 3/1/8/3/1; loss
+     and gradient norm against the plain versions);
+ 11. tools/profile_eval in full: every component prints a time;
 and checks that nothing of JAX or of the JAX package was imported.
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -65,7 +77,37 @@ KERNELS = {
             "pose_estimation_tpu/ops/pallas_pointops.py:121"),
     "min_dists": ("pose_estimation_tpu_torch/csrc/min_dists.cu",
                   "pose_estimation_tpu/ops/pallas_pointops.py:45"),
+    "aggregate": ("pose_estimation_tpu_torch/csrc/gcn.cu",
+                  "pose_estimation_tpu/ops/pallas_gcn.py:588"),
 }
+
+# launches per serving forward / train step on each path
+LITE_SERVE = {"linear_multi": 2, "surface_multi": 1, "knn": 8,
+              "min_dists": 2, "aggregate": 0}
+LITE_TRAIN = dict(LITE_SERVE, min_dists=3)
+FULL_SERVE = dict(LITE_SERVE, linear_multi=3)
+FULL_S2_SERVE = dict(FULL_SERVE, aggregate=1)
+FULL_S2_TRAIN = dict(FULL_S2_SERVE, min_dists=3)
+
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s; fp32 on the CUDA
+# cores and bf16 products on the tensor cores, operations/s
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"fp32": 67e12, "bf16_tensor": 989e12}
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the least time the card could take for the
+    work, the larger of the bytes over the memory rate (each input read
+    once, each output written once) and the operations over the peak rate
+    of their type (`ops` maps a PEAK_OPS_S key to a count)."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = sum(n / PEAK_OPS_S[kind] for kind, n in ops.items())
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def log(msg):
@@ -106,16 +148,17 @@ def plain_kernels():
     for a reference run on the card (this script's comparison only; the
     package itself has no such switch)."""
     from pose_estimation_tpu_torch.ops import gcn, pointops
-    saved = (gcn.linear_multi, gcn.surface_multi, pointops.knn,
-             pointops.nearest)
+    saved = (gcn.linear_multi, gcn.surface_multi, gcn.aggregate,
+             pointops.knn, pointops.nearest)
     gcn.linear_multi = gcn.linear_multi_plain
     gcn.surface_multi = gcn.surface_multi_plain
+    gcn.aggregate = gcn.aggregate_plain
     pointops.knn = pointops.knn_plain
     pointops.nearest = pointops.nearest_plain
     try:
         yield
     finally:
-        (gcn.linear_multi, gcn.surface_multi, pointops.knn,
+        (gcn.linear_multi, gcn.surface_multi, gcn.aggregate, pointops.knn,
          pointops.nearest) = saved
 
 
@@ -123,6 +166,7 @@ def reset_counts():
     from pose_estimation_tpu_torch.ops import gcn, pointops
     gcn.linear_multi.launches = 0
     gcn.surface_multi.launches = 0
+    gcn.aggregate.launches = 0
     pointops.knn.launches = 0
     pointops.nearest.launches = 0
 
@@ -132,7 +176,8 @@ def read_counts():
     return {"linear_multi": gcn.linear_multi.launches,
             "surface_multi": gcn.surface_multi.launches,
             "knn": pointops.knn.launches,
-            "min_dists": pointops.nearest.launches}
+            "min_dists": pointops.nearest.launches,
+            "aggregate": gcn.aggregate.launches}
 
 
 # ---------------------------------------------------------------------------
@@ -156,11 +201,13 @@ def check_knn(dev, g):
     cases = [("self", 1024, 1024, 10), ("self", 256, 256, 10),
              ("self", 64, 64, 8), ("cross", 256, 1024, 4),
              ("cross", 64, 256, 4)]
-    worst, ms, plain_ms, same = 0.0, 0.0, 0.0, []
+    worst, ms, plain_ms, lib_ms, same = 0.0, 0.0, 0.0, 0.0, []
+    n_bytes, n_ops = 0, 0
     for kind, nq, nk, k in cases:
         keys = _cloud(g, BS, nk, dev)
         q = keys if kind == "self" else keys[:, ::nk // nq].contiguous()
         got = pointops.knn(q, keys, k, True)
+        kk = k + 1
         ref = pointops.knn_plain(q, keys, k, True)
 
         def d64(idx):
@@ -174,15 +221,25 @@ def check_knn(dev, g):
         same.append((got == ref).float().mean().item())
         t_k = cuda_ms(lambda: pointops.knn(q, keys, k, True))
         t_p = cuda_ms(lambda: pointops.knn_plain(q, keys, k, True), reps=5)
+        # the library yardstick: one cdist and one topk
+        t_l = cuda_ms(lambda: torch.topk(torch.cdist(q, keys), kk, dim=-1,
+                                         largest=False))
         n_calls = 4 if kind == "cross" and nk == 1024 else 1
         ms += t_k * n_calls
         plain_ms += t_p * n_calls
+        lib_ms += t_l * n_calls
+        # per pair: dot (5), the norms' sum and -2 dot (3), one compare
+        n_bytes += n_calls * (nbytes(keys) + (0 if kind == "self" else
+                                              nbytes(q)) + nbytes(got))
+        n_ops += n_calls * BS * nq * nk * 9
         log(f"  knn {kind} q={nq} keys={nk} k={k}: max rel dist err "
             f"{rel:.2e}, index agreement {same[-1]:.6f}, kernel {t_k:.4f} ms,"
-            f" plain {t_p:.4f} ms")
+            f" plain {t_p:.4f} ms, cdist+topk {t_l:.4f} ms")
         if not rel <= 1e-5:
             raise AssertionError(f"knn {kind} {nq}x{nk}: distance error {rel}")
+    b_ms, b_by = bound(n_bytes, {"fp32": n_ops})
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "tolerance": "relative 1e-5 on fp64 neighbour distances"}
 
 
@@ -198,7 +255,7 @@ def check_min_dists(dev, g):
     import torch
     from pose_estimation_tpu_torch.ops import pointops
     b = TRAIN_BS
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    worst, ms, plain_ms, lib_ms, n_bytes, n_ops = 0.0, 0.0, 0.0, 0.0, 0, 0
     for n, m in ((1024, 500), (1024, 256), (1024, 64), (8192, 8192)):
         t = _cloud(g, b, n, dev)
         s = _cloud(g, b, m, dev)
@@ -213,8 +270,13 @@ def check_min_dists(dev, g):
         if not (err == 0.0 and same == 1.0):
             raise AssertionError(f"min_dists {n}x{m}: {err}, {same}")
         if n == 1024:
+            t_l = cuda_ms(lambda: torch.cdist(t, s).min(dim=-1))
+            log(f"    cdist + min: {t_l:.4f} ms")
             ms += t_k
             plain_ms += t_p
+            lib_ms += t_l
+            n_bytes += nbytes(t, s, d, i)
+            n_ops += b * n * m * 9
     t = _cloud(g, b, 1024, dev).requires_grad_()
     s = _cloud(g, b, 500, dev).requires_grad_()
     w = torch.rand((b, 1024), generator=g, device=dev)
@@ -231,7 +293,9 @@ def check_min_dists(dev, g):
         if not err <= tol:
             raise AssertionError(f"min_dists backward {name}: {err} > {tol}")
         worst = max(worst, err)
+    b_ms, b_by = bound(n_bytes, {"fp32": n_ops})
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "tolerance": "forward exact; backward 1e-3 * max(1, max|ref|)"}
 
 
@@ -279,9 +343,16 @@ def check_surface(dev, g):
     d = [t.to(torch.bfloat16) for t in dirs]
     ms = cuda_ms(lambda: gcn.surface_multi(a, d, s))
     plain_ms = cuda_ms(lambda: gcn.surface_multi_plain(a, d, s), reps=5)
+    b, n, k, _ = a[0].shape
+    so = d[0].shape[-1]
+    # per (point, slot, stream, support, channel): dot (5), relu, max
+    b_ms, b_by = bound(nbytes(*a, *d) + b * n * len(a) * (so // s) * 4,
+                       {"fp32": b * n * k * len(a) * so * 7
+                        + b * n * len(a) * (so // s) * (s - 1)})
     log(f"  surface_multi bf16 level 0: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms")
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "tolerance": "one bf16 ulp of max|ref|"}
 
 
@@ -293,7 +364,7 @@ def check_linear(dev, g):
     way, 2^-8 relative, and the max over k can then switch neighbour)."""
     import torch
     from pose_estimation_tpu_torch.ops import gcn
-    worst, ms, plain_ms = 0.0, 0.0, 0.0
+    worst, ms, plain_ms, n_bytes, ops = 0.0, 0.0, 0.0, 0, {}
     for n in (1024, 256):
         nds, dirs, xs, ws, bs, idx, s = _gcn_inputs(g, dev, n, n, 10)
         for dt, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
@@ -316,8 +387,153 @@ def check_linear(dev, g):
             f"{t_p:.4f} ms")
         ms += t_k
         plain_ms += t_p
+        n_bytes += linear_bytes(nds, dirs, x, ws, bs, idx, s)
+        for kind, v in linear_ops(nds, x, ws, idx, s).items():
+            ops[kind] = ops.get(kind, 0) + v
+    worst = max(worst, check_linear_full(dev, g))
+    b_ms, b_by = bound(n_bytes, ops)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "tolerance": "fp32 1e-4, bf16 2e-2, times max(1, max|ref|)"}
+
+
+def linear_bytes(nds, dirs, xs, ws, bs, idx, s):
+    """Inputs read once, the fp32 output [B, N, streams*O] written once."""
+    b, n, _ = idx.shape
+    return (nbytes(*nds, *dirs, *xs, *ws, *bs, idx)
+            + b * n * len(nds) * (ws[0].shape[-1] // s) * 4)
+
+
+def linear_ops(nds, xs, ws, idx, s):
+    """The support table once per point (a bf16 product: tensor cores),
+    then per (point, slot, stream, support, channel) dot (5), relu,
+    product and max, and the support sums."""
+    b, n, k = idx.shape
+    m, cin = xs[0].shape[1:]
+    so, st = ws[0].shape[-1], len(nds)
+    return {"bf16_tensor": 2 * b * m * cin * so * st,
+            "fp32": b * n * k * st * so * 8 + b * n * st * (so // s) * (s - 1)
+            + b * m * st * so}
+
+
+def check_linear_full(dev, g):
+    """Kernel 1 at the full FusionNet's new level-1 shapes (B=32, N=M=256,
+    K=10, S=7, O=256): the streams' conv2 (Cin 128) and the extra
+    ConvLayers (Cin 256); fp32 and bf16 at check_linear's tolerances,
+    with the peak device memory of the plain comparison."""
+    import torch
+    from pose_estimation_tpu_torch.ops import gcn
+    worst = 0.0
+    for cin in (128, 256):
+        nds, dirs, xs, ws, bs, idx, s = _gcn_inputs(g, dev, 256, 256, 10,
+                                                    cin=cin, o=256)
+        for dt, rtol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            x = [t.to(dt) for t in xs]
+            got = torch.cat(gcn.linear_multi(nds, dirs, x, ws, bs, idx, s), -1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ref = torch.cat(gcn.linear_multi_plain(nds, dirs, x, ws, bs, idx,
+                                                   s), -1)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            err = (got - ref).abs().max().item()
+            tol = rtol * max(1.0, ref.abs().max().item())
+            log(f"  linear_multi full FusionNet level 1, Cin {cin} -> O 256 "
+                f"{dt}: max |err| {err:.3e} (tol {tol:.3e}); plain version "
+                f"peak {peak:.2f} GiB above its inputs")
+            if not err <= tol:
+                raise AssertionError(f"linear_multi Cin {cin} {dt}: {err}")
+            worst = max(worst, err)
+        x = [t.to(torch.bfloat16) for t in xs]
+        t_k = cuda_ms(lambda: gcn.linear_multi(nds, dirs, x, ws, bs, idx, s))
+        t_p = cuda_ms(lambda: gcn.linear_multi_plain(nds, dirs, x, ws, bs,
+                                                     idx, s), reps=5)
+        b_ms, b_by = bound(linear_bytes(nds, dirs, x, ws, bs, idx, s),
+                           linear_ops(nds, x, ws, idx, s))
+        log(f"  linear_multi bf16 Cin {cin} -> O 256: kernel {t_k:.4f} ms, "
+            f"plain {t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return worst
+
+
+def _agg_inputs(g, dev, b, n, k, d, s, o):
+    import torch
+    from pose_estimation_tpu_torch.core.mathsafe import safe_normalize
+    from pose_estimation_tpu_torch.ops import pointops
+    pts = _cloud(g, b, n, dev)
+    idx = pointops.knn(pts, pts, k, True)
+    nd = safe_normalize(torch.randn((b, n, k, d), generator=g, device=dev))
+    dirs = safe_normalize(torch.randn((d, s * o), generator=g, device=dev),
+                          dim=0)
+    feats = torch.randn((b, n, s * o), generator=g, device=dev)
+    return nd, dirs, feats, idx
+
+
+def aggregate_bound(nd, dirs, feats, idx, s):
+    """Inputs read once, the fp32 output written once; per (point, slot,
+    support, channel) a D-term dot (2D - 1), relu, product and max, then
+    the support sums."""
+    b, n, k, d = nd.shape
+    so = dirs.shape[-1]
+    return bound(nbytes(nd, dirs, feats, idx) + b * n * (so // s) * 4,
+                 {"fp32": b * n * k * so * (2 * d + 2)
+                  + b * n * (so // s) * (s - 1)})
+
+
+def check_aggregate(dev, g):
+    """Kernel 5 against aggregate_plain at the profiler's shape (B=32,
+    N=M=1024, K=10, D=3, S=7, O=128) and at the full FusionNet's fm_4 at
+    S=2 (B=32, N=M=64, K=8, D=9, S*O=512), fp32 and bf16: the kernel
+    rounds as the plain version does, op for op, so the aim is the last
+    bit; the tolerance is one bf16 ulp of max|ref| in bf16 and 1e-5 *
+    max(1, max|ref|) in fp32. The backward at fm_4's shape in fp32
+    against autograd through the plain version: 1e-3 * max(1, max|ref|).
+    The entry's times and bound are fm_4's in bf16 (the main path's)."""
+    import torch
+    from pose_estimation_tpu_torch.ops import gcn
+    worst, res = 0.0, {}
+    for name, (n, k, d, s, o) in (("profiler", (1024, 10, 3, 7, 128)),
+                                  ("fm_4", (64, 8, 9, 2, 256))):
+        nd, dirs, feats, idx = _agg_inputs(g, dev, BS, n, k, d, s, o)
+        for dt in (torch.float32, torch.bfloat16):
+            f = feats.to(dt)
+            got = gcn.aggregate(nd, dirs, f, idx, s)
+            ref = gcn.aggregate_plain(nd, dirs, f, idx, s)
+            err = (got - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            tol = (2.0 ** -8 * scale if dt == torch.bfloat16
+                   else 1e-5 * max(1.0, scale))
+            log(f"  aggregate {name} {dt}: max |err| {err:.3e} (tol "
+                f"{tol:.3e}), bit-exact {torch.equal(got, ref)}, max |ref| "
+                f"{scale:.3f}")
+            if not err <= tol:
+                raise AssertionError(f"aggregate {name} {dt}: {err} > {tol}")
+            worst = max(worst, err)
+        f = feats.to(torch.bfloat16)
+        t_k = cuda_ms(lambda: gcn.aggregate(nd, dirs, f, idx, s))
+        t_p = cuda_ms(lambda: gcn.aggregate_plain(nd, dirs, f, idx, s),
+                      reps=5)
+        b_ms, b_by = aggregate_bound(nd, dirs, f, idx, s)
+        log(f"  aggregate {name} bf16: kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        res[name] = {"ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+                     "bound_by": b_by}
+    leaves = [t.clone().requires_grad_() for t in (nd, dirs, feats)]
+    twins = [t.clone().requires_grad_() for t in (nd, dirs, feats)]
+    cot = torch.randn(leaves[0].shape[:2] + (256,), generator=g, device=dev)
+    gcn.aggregate(*leaves, idx, 2).backward(cot)
+    gcn.aggregate_plain(*twins, idx, 2).backward(cot)
+    for what, a, r in zip(("nd", "dirs", "feats"), leaves, twins):
+        err = (a.grad - r.grad).abs().max().item()
+        tol = 1e-3 * max(1.0, r.grad.abs().max().item())
+        log(f"  aggregate backward fm_4 fp32, {what} gradient: max |err| "
+            f"{err:.3e} (tol {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"aggregate backward {what}: {err} > {tol}")
+        worst = max(worst, err)
+    return dict(res["fm_4"], max_abs_err=worst, library_ms=None,
+                profiler_shape=res["profiler"],
+                tolerance="forward bf16 one ulp of max|ref|, fp32 1e-5; "
+                          "backward 1e-3, times max(1, max|ref|)")
 
 
 # ---------------------------------------------------------------------------
@@ -361,12 +577,18 @@ def check_solver_on_gt(cfg, batch, dev):
         raise AssertionError(f"solver on gt: rot {rot} deg, ADD {add}")
 
 
-def serve_full_width(cfg, batch, dev):
+def serve_full_width(cfg, batch, dev, variant="lite", want=LITE_SERVE,
+                     timing=True):
+    """The `variant` KRRN of `cfg` (bf16, seeded random weights) through
+    serve.build_infer_step: launch counts of one step against `want`,
+    finite outputs, the kernel path against the plain path, and (with
+    `timing`) the stage times."""
     import torch
     from pose_estimation_tpu_torch.models.krrn import KRRN
     from pose_estimation_tpu_torch.serve import build_infer_step
     torch.manual_seed(0)
-    model = KRRN(cfg, dtype=torch.bfloat16).to(dev).eval()
+    model = KRRN(cfg, dtype=torch.bfloat16,
+                 fusion_variant=variant).to(dev).eval()
     step = build_infer_step(model, cfg)
     gen = torch.Generator(device=dev)
 
@@ -382,9 +604,8 @@ def serve_full_width(cfg, batch, dev):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"  launches in one serving step: {counts}")
-    if counts != {"linear_multi": 2, "surface_multi": 1, "knn": 8,
-                  "min_dists": 2}:
-        raise AssertionError(f"launch counts {counts} != 2/1/8/2")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
     for k, v in out.items():
         if not torch.isfinite(v.float()).all():
             raise AssertionError(f"non-finite {k}")
@@ -405,6 +626,8 @@ def serve_full_width(cfg, batch, dev):
         f"{e_t:.3e} m (tol {tol_t:.3e})")
     if not (e_xyz <= tol_xyz and e_t <= tol_t):
         raise AssertionError(f"kernel vs plain path: {e_xyz}, {e_t}")
+    if not timing:
+        return counts
 
     def timed(fn, iters=10):
         ts = []
@@ -460,10 +683,10 @@ def _median(xs):
     return xs[len(xs) // 2]
 
 
-def train_full_width(cfg, dev):
-    """Phase 7: the KRRN train step of `cfg` (the shipped config) on one
-    fixed batch of TRAIN_BS frames, one of each of the first classes, at
-    the demo's learning rate without warmup."""
+def _train_setup(cfg, dev, variant="lite"):
+    """The `variant` KRRN train step of `cfg` on one fixed batch of
+    TRAIN_BS frames, one of each of the first classes, at the demo's
+    learning rate without warmup: (state, step, batch)."""
     import torch
     from pose_estimation_tpu_torch.configs import schema
     from pose_estimation_tpu_torch.models.krrn import KRRN
@@ -475,11 +698,17 @@ def train_full_width(cfg, dev):
     batch = synthetic_batch(cfg, dev, seed=3,
                             indices=[4 * j for j in range(TRAIN_BS)])
     torch.manual_seed(0)
-    model = KRRN(cfg, dtype=torch.bfloat16).to(dev)
+    model = KRRN(cfg, dtype=torch.bfloat16, fusion_variant=variant).to(dev)
     tx = make_optimizer(cfg, total_steps=1000)
     state = TrainState.create(model, tx,
                               torch.Generator(device=dev).manual_seed(0))
-    step = build_train_step(model, tx, cfg)
+    return state, build_train_step(model, tx, cfg), batch
+
+
+def _step_vs_plain(state, step, batch):
+    """One step's loss and gradient norm with the kernels against the
+    plain versions, from the same state, batch and draws."""
+    import torch
 
     def loss_and_gnorm():
         state.generator.manual_seed(1)
@@ -500,15 +729,26 @@ def train_full_width(cfg, dev):
         raise AssertionError(f"train step kernel vs plain: loss {l_k} / "
                              f"{l_p}, grad norm {g_k} / {g_p}")
 
-    # the main path, once, between resetting and reading the counts
+
+def _counted_step(state, step, batch, want):
+    """The main path, once, between resetting and reading the counts."""
+    import torch
     reset_counts()
-    m = step(state, batch, opt_pose=True)
+    step(state, batch, opt_pose=True)
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"  launches in one train step: {counts}")
-    if counts != {"linear_multi": 2, "surface_multi": 1, "knn": 8,
-                  "min_dists": 3}:
-        raise AssertionError(f"launch counts {counts} != 2/1/8/3")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    return counts
+
+
+def train_full_width(cfg, dev):
+    """Phase 7: the KRRN train step of `cfg` (the shipped config)."""
+    import torch
+    state, step, batch = _train_setup(cfg, dev)
+    _step_vs_plain(state, step, batch)
+    counts = _counted_step(state, step, batch, LITE_TRAIN)
 
     torch.cuda.reset_peak_memory_stats()
     losses, skipped, times, split = [], 0.0, [], []
@@ -550,6 +790,70 @@ def train_full_width(cfg, dev):
         f"ms")
     profile_steps(lambda: step(state, batch), 3)
     return counts
+
+
+def full_fusion_s2(cfg, batch, dev):
+    """Phase 10: the full-fusion KRRN at S=2 (full widths otherwise),
+    where its first fuse layer is wide: one serving forward and one train
+    step (bs=8) with their launch counts, the forward against the plain
+    path and the step's loss and gradient norm against the plain
+    versions' from the same state, batch and draws."""
+    from pose_estimation_tpu_torch.configs import schema
+    cfg = schema.override(cfg, **{"module.gcn3d": schema.Gcn3dConfig(
+        neighbor_num=cfg.module.gcn3d.neighbor_num, support_num=2)})
+    serve_counts = serve_full_width(cfg, batch, dev, "full", FULL_S2_SERVE,
+                                    timing=False)
+    state, step, train_batch = _train_setup(cfg, dev, "full")
+    _step_vs_plain(state, step, train_batch)
+    return serve_counts, _counted_step(state, step, train_batch,
+                                       FULL_S2_TRAIN)
+
+
+PROFILE_COMPONENTS = 14
+
+
+def run_profiler():
+    """Phase 11: tools/profile_eval in full, in a process of its own; every
+    component must print a time."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "pose_estimation_tpu_torch.tools.profile_eval"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"profile_eval failed:\n{out.stdout[-3000:]}\n"
+                           f"{out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  {line}")
+    times = json.loads(lines[-1])["ms"]
+    log(f"  {len(times)} components timed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (len(times) == PROFILE_COMPONENTS
+            and all(0 < t < float("inf") for t in times.values())):
+        raise AssertionError(f"profile_eval printed {times}")
+
+
+def ptxas_summary(build_log):
+    """Registers (max over instantiations) and spill bytes per kernel."""
+    per, name = {}, "?"
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            mangled = re.match(r"_Z(\d+)", name)
+            if mangled:           # the kernel's own name, templates dropped
+                start = mangled.end()
+                name = name[start:start + int(mangled.group(1))]
+            per.setdefault(name, [0, 0, 0])
+            per[name][2] += 1
+        elif "spill stores" in line:
+            per[name][1] += int(re.search(r"(\d+) bytes spill stores",
+                                          line).group(1))
+        elif "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            per[name][0] = max(per[name][0], regs)
+    return per
 
 
 def profile_steps(fn, n):
@@ -635,15 +939,9 @@ def main() -> int:
     _build.library()
     log(f"[2] kernels built in {time.perf_counter() - t0:.1f} s "
         f"(hash {_build.source_hash()})")
-    name, spill = "?", ""
-    for line in _build.build_log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            name = m.group(1)
-        elif "spill stores" in line:
-            spill = line.strip()
-        elif "Used" in line and "registers" in line:
-            log(f"    ptxas {name}: {line.split(':', 1)[1].strip()}; {spill}")
+    for name, (regs, spill, n) in ptxas_summary(_build.build_log).items():
+        log(f"    ptxas {name}: {n} instantiation(s), at most {regs} "
+            f"registers, {spill} bytes spilled in all")
 
     log("[3] kernels vs plain versions (bs=32 serving shapes; bs=8 train "
         "shapes for min_dists)")
@@ -651,7 +949,8 @@ def main() -> int:
     results = {"linear_multi": check_linear(dev, g),
                "surface_multi": check_surface(dev, g),
                "knn": check_knn(dev, g),
-               "min_dists": check_min_dists(dev, g)}
+               "min_dists": check_min_dists(dev, g),
+               "aggregate": check_aggregate(dev, g)}
 
     from pose_estimation_tpu_torch.configs import schema
     cfg = schema.Config()
@@ -661,16 +960,29 @@ def main() -> int:
 
     log("[5] full-width KRRN (schema.Config(), bf16) through "
         "serve.build_infer_step")
-    counts = serve_full_width(cfg, batch, dev)
+    paths = {"serve_lite": serve_full_width(cfg, batch, dev)}
 
     log("[6] serving CLI, 64 synthetic frames at batch 32")
     run_cli(cfg)
 
     log("[7] full-width KRRN training step (schema.Config(), bf16, bs=8)")
-    train_counts = train_full_width(cfg, dev)
+    paths["train_lite"] = train_full_width(cfg, dev)
 
     log("[8] training CLI, one debug epoch (synthetic, pose branch on)")
     run_train_cli()
+
+    log("[9] full-fusion KRRN (schema.Config(), fusion_variant='full', "
+        "bf16) through serve.build_infer_step")
+    paths["serve_full"] = serve_full_width(cfg, batch, dev, "full",
+                                           FULL_SERVE)
+
+    log("[10] full-fusion KRRN at S=2 (wide fm_4): one serving forward, "
+        "one train step (bs=8)")
+    paths["serve_full_s2"], paths["train_full_s2"] = full_fusion_s2(
+        cfg, batch, dev)
+
+    log("[11] tools/profile_eval, in full")
+    run_profiler()
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax",
@@ -682,10 +994,14 @@ def main() -> int:
     for name, (src, tpu) in KERNELS.items():
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": tpu, "launches": train_counts[name],
-                        "serve_launches": counts[name],
+                        "replaces": tpu,
+                        "launches": paths["train_full_s2"][name],
+                        "launches_by_path": {p: c[name]
+                                             for p, c in paths.items()},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

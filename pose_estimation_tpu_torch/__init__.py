@@ -14,7 +14,8 @@ Layout:
   ops             hand-written CUDA kernels + their plain PyTorch versions,
                   the autograd.Functions that train through them
   csrc            CUDA sources, built at first use (ops/_build.py)
-  models          HRNet, KRRN heads, 3D-GCN FusionNetLite, TBase
+  models          HRNet, KRRN heads, 3D-GCN FusionNetLite and FusionNet,
+                  TBase
   losses          map losses, ADD(-S) pose loss, the KRRN aggregate
   metrics         ADD(-S), pose accuracy, ADD AUC, the per-object table
   data            synthetic frames, sample preparation, batching, prefetch
@@ -24,6 +25,9 @@ Layout:
   convert         JAX ('/'-joined npz) params and parameter-shaped trees
                   -> torch
   tools/infer     serving CLI (JSONL per frame)
+  tools/profile_eval, tools/profile_serve
+                  per-component and per-layer times on the card
+  device          the card unless the caller asks for the CPU
 
 It imports torch and nothing of JAX or of the JAX package; its tests
 import both.

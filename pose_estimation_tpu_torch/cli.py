@@ -1,7 +1,7 @@
 """Training command line (counterpart of the KRRN half of cli.py).
 
   python -m pose_estimation_tpu_torch.cli --config cfg.py --synthetic \
-      --debug --epochs 1 --log_dir runs/smoke
+      --debug --epochs 1 --log_dir runs/smoke [--device cpu]
 
 `--config` is a preset of configs/schema.py or a .py file whose
 `get_config()` returns a Config. Only the synthetic dataset is ported (the
@@ -58,12 +58,15 @@ def main(argv=None):
                    help="use the synthetic fixture dataset")
     p.add_argument("--frames_per_object", type=int, default=64)
     p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; no card raises) or cpu")
     args = p.parse_args(argv)
 
     cfg = load_config(args.config)
     dataset = build_dataset(cfg, args)
     from pose_estimation_tpu_torch.train.trainer import Trainer
-    trainer = Trainer(cfg, dataset, log_dir=args.log_dir, resume=args.resume)
+    trainer = Trainer(cfg, dataset, log_dir=args.log_dir, resume=args.resume,
+                      device=args.device)
     trainer.init_state()
     if args.eval_mode:
         print(json.dumps(trainer.test_epoch(0), indent=2))

@@ -24,13 +24,29 @@ template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// (a0*b0 + a1*b1) + a2*b2 with every product and sum rounded on its own:
-// no FMA contraction, the same operation order as the plain PyTorch
-// versions, so kernel and reference agree to the last bit where they can.
+// x rounded to T and back: what an eager PyTorch op in dtype T stores
+// (it computes in fp32 and rounds the result to T).
+template <typename T> __device__ __forceinline__ float rn(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// ((a0*b0 + a1*b1) + a2*b2) + ... over D terms, every product and sum
+// rounded on its own and then to T: no FMA contraction, the operation
+// order of the plain PyTorch versions (one eager op per product and per
+// sum), so kernel and reference agree to the last bit where they can.
+template <typename T, int D>
+__device__ __forceinline__ float dot_rn(const float* a, const float* b) {
+  float acc = rn<T>(__fmul_rn(a[0], b[0]));
+#pragma unroll
+  for (int d = 1; d < D; ++d)
+    acc = rn<T>(__fadd_rn(acc, rn<T>(__fmul_rn(a[d], b[d]))));
+  return acc;
+}
+
 __device__ __forceinline__ float dot3_rn(float a0, float a1, float a2,
                                          float b0, float b1, float b2) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)),
-                   __fmul_rn(a2, b2));
+  const float a[3] = {a0, a1, a2}, b[3] = {b0, b1, b2};
+  return dot_rn<float, 3>(a, b);
 }
 
 static inline int pose_last_error() { return (int)cudaGetLastError(); }

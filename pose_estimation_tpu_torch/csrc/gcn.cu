@@ -1,18 +1,22 @@
-// Fused 3D-GCN aggregates of FusionNetLite levels 0 and 1.
+// 3D-GCN aggregates: the fused ones of the fusion nets' levels 0 and 1,
+// and the wide-table one of a wide ConvLayer.
 //
 // theta[n, k, s, o] = relu(<nd[n, k], dirs[:, s*O + o]>)      (d = 3)
 // surface:  out[n, o] = sum_s max_k theta[n, k, s, o]
 // linear:   out[n, o] = sum_s max_k theta[n, k, s, o] * T[idx[n, k], s*O + o]
 //           with the support table T = X @ W + b at every point.
-// Several streams (the vertex / xyz / normal streams of FusionNetLite)
+// aggregate: the linear form for one stream with the table F given and
+//           d = 3 or 9 (agg_kernel).
+// Several streams (the vertex / xyz / normal streams of the fusion nets)
 // share one KNN graph and run in one launch; outputs are [B, N, streams*O]
 // fp32.
 //
 // Replaces pose_estimation_tpu/ops/pallas_gcn.py:_surface_multi_kernel
-// (launched by _surface_pallas_core) and _linear_multi_kernel (launched by
-// _linear_pallas_core). The TPU kernels gather neighbour rows with one-hot
-// matmuls because random gathers are slow there; on the card the rows are
-// loaded directly.
+// (launched by _surface_pallas_core), _linear_multi_kernel (launched by
+// _linear_pallas_core) and _agg_kernel (launched by
+// _gcn_aggregate_fwd_pallas). The TPU kernels gather neighbour rows with
+// one-hot matmuls, or take a pre-gathered table, because random gathers
+// are slow there; on the card the rows are loaded directly.
 #include "common.cuh"
 
 // ---------------------------------------------------------------------------
@@ -197,6 +201,63 @@ __global__ void linear_agg_kernel(const int* __restrict__ idx,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Wide-table aggregate (kernel 5), one stream, d = 3 or 9.
+// out[n, o] = sum_s max_k relu(<nd[n, k], dirs[:, s*O + o]>) * F[idx[n, k], s*O + o]
+// with the support table F [B, M, S*O] given (the wide ConvLayer computes
+// it with one matmul). Replaces pallas_gcn.py:_agg_kernel, which reads a
+// pre-gathered [B, N, K, S*O] table; here the block gathers rows of F by
+// idx, as linear_agg_kernel reads rows of its table.
+// One block per (point tile, batch element), thread o keeps its D*S
+// direction weights (63 floats at D=9, S=7) and S running maxima in
+// registers. Arithmetic follows the plain version op for op: in T = bf16
+// every product, sum, theta, product with F and the support sum is
+// rounded to bf16 as PyTorch's eager bf16 ops round them (rn<T>); in fp32
+// nothing is rounded. Bound on the card by the fp32 issue rate
+// (K*S*(2D+2) operations per output, with bf16 rounding about twice that)
+// and by the table rows, read K times, mostly from L2 (one batch
+// element's table is under 2 MB at the profiler's shape).
+// ---------------------------------------------------------------------------
+template <typename T, int S, int D>
+__global__ void agg_kernel(const int* __restrict__ idx,
+                           const T* __restrict__ nd, const T* __restrict__ dirs,
+                           const T* __restrict__ feats,
+                           float* __restrict__ out, int N, int M, int K,
+                           int O, int pts) {
+  const int o = threadIdx.x;
+  if (o >= O) return;
+  const int b = blockIdx.y;
+  const int so = S * O;
+  float w[S][D];
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int d = 0; d < D; ++d) w[s][d] = to_f32(dirs[d * so + s * O + o]);
+  const int n_end = min(N, (blockIdx.x + 1) * pts);
+  for (int n = blockIdx.x * pts; n < n_end; ++n) {
+    const size_t pn = (size_t)b * N + n;
+    float m[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) m[s] = -INFINITY;
+    for (int k = 0; k < K; ++k) {
+      const int j = idx[pn * K + k];
+      float v[D];
+#pragma unroll
+      for (int d = 0; d < D; ++d) v[d] = to_f32(nd[(pn * K + k) * D + d]);
+      const T* row = feats + ((size_t)b * M + j) * so;
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const float th = fmaxf(dot_rn<T, D>(v, w[s]), 0.f);
+        m[s] = fmaxf(m[s], rn<T>(__fmul_rn(th, to_f32(row[s * O + o]))));
+      }
+    }
+    float acc = m[0];
+#pragma unroll
+    for (int s = 1; s < S; ++s) acc = rn<T>(__fadd_rn(acc, m[s]));
+    out[pn * O + o] = acc;
+  }
+}
+
 #define GCN_PTS 8
 
 #define SURF_CASE(S)                                                    \
@@ -266,4 +327,47 @@ extern "C" int pose_gcn_linear(const int* idx, const void* nd,
                                K, streams, cin, S, O, stream);
   return launch_linear<float>(idx, nd, dirs, x, w, bias, table, out, B, N, M,
                               K, streams, cin, S, O, stream);
+}
+
+template <typename T, int D>
+static int launch_aggregate(const int* idx, const void* nd, const void* dirs,
+                            const void* feats, float* out, int B, int N,
+                            int M, int K, int S, int O, cudaStream_t stream) {
+  dim3 grid((N + GCN_PTS - 1) / GCN_PTS, B);
+  const int threads = (O + 31) / 32 * 32;
+#define AGG5_CASE(SS)                                                      \
+  case SS:                                                                 \
+    agg_kernel<T, SS, D><<<grid, threads, 0, stream>>>(                    \
+        idx, (const T*)nd, (const T*)dirs, (const T*)feats, out, N, M, K,  \
+        O, GCN_PTS);                                                       \
+    break;
+  switch (S) {
+    AGG5_CASE(1) AGG5_CASE(2) AGG5_CASE(3) AGG5_CASE(4)
+    AGG5_CASE(5) AGG5_CASE(6) AGG5_CASE(7) AGG5_CASE(8)
+    default:
+      return POSE_UNSUPPORTED;
+  }
+#undef AGG5_CASE
+  return pose_last_error();
+}
+
+extern "C" int pose_gcn_aggregate(const int* idx, const void* nd,
+                                  const void* dirs, const void* feats,
+                                  float* out, int B, int N, int M, int K,
+                                  int D, int S, int O, int is_bf16,
+                                  cudaStream_t stream) {
+  if (B < 1 || N < 1 || M < 1 || K < 1 || O < 1 || O > 1024 || S < 1 ||
+      S > 8)
+    return POSE_UNSUPPORTED;
+  if (D == 3)
+    return is_bf16 ? launch_aggregate<bf16, 3>(idx, nd, dirs, feats, out, B,
+                                               N, M, K, S, O, stream)
+                   : launch_aggregate<float, 3>(idx, nd, dirs, feats, out, B,
+                                                N, M, K, S, O, stream);
+  if (D == 9)
+    return is_bf16 ? launch_aggregate<bf16, 9>(idx, nd, dirs, feats, out, B,
+                                               N, M, K, S, O, stream)
+                   : launch_aggregate<float, 9>(idx, nd, dirs, feats, out, B,
+                                                N, M, K, S, O, stream);
+  return POSE_UNSUPPORTED;
 }

@@ -1,14 +1,19 @@
-"""FusionNetLite: three-stream 3D-GCN fusion (counterpart of
-models/fusion.py:FusionNetLite).
+"""Three-stream 3D-GCN fusion (counterpart of models/fusion.py):
+FusionNetLite (the default) and the full FusionNet.
 
 Streams over the depth cloud, the predicted model coordinates and the
 predicted normals share the KNN graph of the cloud; two pooling levels
 N -> N/4 -> N/16; two 9-D fuse ConvLayers; nearest-neighbour upsampling
-back to N. Output [B, N, 1280]. Per forward it launches the KNN kernel 8
-times (3 self searches, 5 in the PoolLayers), the fused linear aggregate
-twice (levels 0 and 1), the fused surface aggregate once and the
-nearest-source kernel twice (the two up-sampling maps). A `generator`
-(training) makes the five PoolLayer subsamples random draws.
+back to N. FusionNetLite's output is [B, N, 1280]; per forward it
+launches the KNN kernel 8 times (3 self searches, 5 in the PoolLayers),
+the fused linear aggregate twice (levels 0 and 1), the fused surface
+aggregate once and the nearest-source kernel twice (the two up-sampling
+maps). FusionNet widens level 1 to 256 channels with three extra
+ConvLayers (a third fused linear launch) and outputs [B, N, 1664]; its
+first fuse layer reads the 768-wide level-1 features, which is a wide
+ConvLayer (the wide-table aggregate kernel) while S*256 <= 768, i.e. at
+S = 2 and 3. A `generator` (training) makes the five PoolLayer
+subsamples random draws.
 """
 
 from __future__ import annotations
@@ -38,9 +43,8 @@ class _Stream(nn.Module):
 
 def _fused_convs(convs, idx, pts_list, feat_list, support_num):
     """Narrow ConvLayers sharing one KNN graph through one fused linear
-    aggregate; a wide layer runs on its own instead."""
-    if not all(c.narrow for c in convs):
-        return [c(idx, p, f) for c, p, f in zip(convs, pts_list, feat_list)]
+    aggregate. A wide layer (in_ch >= S*O, e.g. any layer at S = 1)
+    raises ValueError, as the JAX package's does."""
     parts = [c(idx, p, f, parts=True)
              for c, p, f in zip(convs, pts_list, feat_list)]
     centers, dirs_l, nds, xs, ws, bs = map(list, zip(*parts))
@@ -117,3 +121,60 @@ class FusionNetLite(Named):
         feat_2_up = po.gather_rows(feat_2, near_1)
         fm_5_up = po.gather_rows(fm_5, near_2)
         return torch.cat([fm_5_up, feat_1, feat_2_up], -1)
+
+
+class FusionNet(Named):
+    """Full fusion. Output [B, N, 1664] = 512 + 384 + 768. Children carry
+    flax's names in its creation order: _Stream_0..2, the extra level-1
+    ConvLayer_0..2, Norm_0..2, then ConvLayer_3 (fm_4) and ConvLayer_4
+    (fm_5); the PoolLayers hold no parameters."""
+
+    def __init__(self, neighbor_num=10, support_num=7, norm="gn",
+                 dtype=torch.float32):
+        super().__init__()
+        self.neighbor_num, self.support_num, self.dtype = (
+            neighbor_num, support_num, dtype)
+        self.streams = [self.child(_Stream(128, 128, 256, support_num, norm,
+                                           dtype)) for _ in range(3)]
+        self.extra = [self.child(ConvLayer(256, 256, support_num,
+                                           dtype=dtype)) for _ in range(3)]
+        self.pools = [PoolLayer(4, 4) for _ in range(5)]
+        self.norms = [self.child(Norm(256, norm, dtype=dtype))
+                      for _ in range(3)]
+        self.child(ConvLayer(768, 256, support_num, point_dim=9, dtype=dtype))
+        self.child(ConvLayer(256, 512, support_num, point_dim=9, dtype=dtype))
+
+    def forward(self, vertices, xyz, normal, generator=None):
+        k, s, g = self.neighbor_num, self.support_num, generator
+        vertices = vertices.detach().contiguous()
+        idx = po.knn_indices(vertices, k)
+        inputs = [vertices, xyz, normal]
+        fm1 = _fused_level0(self.streams, idx, inputs, s, self.dtype)
+        feat_1 = torch.cat(fm1, -1)                            # [B,N,384]
+        feat_9d = torch.cat(inputs, -1)                        # [B,N,9]
+
+        pooled = [p(pt, f, generator=g)
+                  for p, pt, f in zip(self.pools, inputs, fm1)]
+        pool_1, _ = self.pools[3](feat_9d, feat_1, generator=g)
+        pts1 = [pt for pt, _ in pooled]
+
+        k1 = max(1, min(k, pts1[0].shape[1] // 8))
+        idx1 = po.knn_indices(pts1[0].contiguous(), k1)
+        fm2 = _fused_level1(self.streams, idx1, pts1, [f for _, f in pooled],
+                            s)
+        fm3 = [torch.relu(nm(y)) for nm, y in zip(
+            self.norms, _fused_convs(self.extra, idx1, pts1, fm2, s))]
+        feat_2 = torch.cat(fm3, -1)                            # [B,N/4,768]
+
+        pool_2, f_pool_2 = self.pools[4](pool_1, feat_2, generator=g)
+        k2 = max(1, min(k, pool_2.shape[1] // 8))
+        idx2 = po.knn_indices(pool_2[..., :3].contiguous(), k2)
+        fm_4 = self.ConvLayer_3(idx2, pool_2, f_pool_2)
+        fm_5 = self.ConvLayer_4(idx2, pool_2, fm_4)
+
+        near_1 = po.nearest_index(vertices, pool_1[..., :3].detach()
+                                  .contiguous())
+        near_2 = po.nearest_index(vertices, pool_2[..., :3].detach()
+                                  .contiguous())
+        return torch.cat([po.gather_rows(fm_5, near_2), feat_1,
+                          po.gather_rows(feat_2, near_1)], -1)

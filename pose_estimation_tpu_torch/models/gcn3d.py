@@ -4,8 +4,9 @@
   out[b,n,o]       = sum_s max_k theta * (neighbour support feature)
 
 The KNN index comes from the caller, shared across streams. The
-aggregates run through ops.gcn: FusionNetLite calls these layers with
-parts=True and runs several streams through one fused kernel launch.
+aggregates run through ops.gcn: the fusion nets call these layers with
+parts=True and run several streams through one fused kernel launch; a
+wide ConvLayer (in_ch >= S*O) runs the wide-table aggregate.
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ class ConvSurface(nn.Module):
         nd = po.neighbor_directions(vertices, neighbor_index)
         if parts:
             return dirs, nd
-        return gcn.surface_multi([nd], [dirs], self.support_num)[0].to(
-            self.dtype)
+        return gcn.aggregate(nd, dirs, None, neighbor_index,
+                             self.support_num).to(self.dtype)
 
 
 class ConvLayer(nn.Module):
@@ -76,8 +77,8 @@ class ConvLayer(nn.Module):
                                        neighbor_index, s)
         else:
             if parts:
-                raise ValueError("parts=True needs a narrow input "
-                                 f"(in_ch >= s*o = {s * o})")
+                raise ValueError("parts=True requires narrow input (in_ch "
+                                 f"{feature_map.shape[-1]} >= s*o {s * o})")
             feat = x @ w + bb
             center = feat[..., :o]
             agg = gcn.aggregate(nd, dirs, feat[..., o:], neighbor_index, s)

@@ -1,7 +1,8 @@
-"""KRRN (counterpart of models/krrn.py) with the lite fusion.
+"""KRRN (counterpart of models/krrn.py).
 
 HRNet backbone, the XYZ/NML decoder heads, the per-class channel select,
-the pixel gather at `choose`, FusionNetLite and the translation head.
+the pixel gather at `choose`, the fusion net (FusionNetLite by default,
+the full FusionNet with fusion_variant="full") and the translation head.
 Inputs and outputs keep the JAX layouts: x [B, H, W, 3] NHWC crop,
 p_emb [B, N, 3] cloud, choose [B, N] flat pixel ids, cls [B]; maps come
 back NHWC.
@@ -14,7 +15,7 @@ import torch.nn.functional as F
 
 from pose_estimation_tpu_torch.configs.schema import Config
 from pose_estimation_tpu_torch.core.mathsafe import safe_normalize
-from pose_estimation_tpu_torch.models.fusion import FusionNetLite
+from pose_estimation_tpu_torch.models.fusion import FusionNet, FusionNetLite
 from pose_estimation_tpu_torch.models.hrnet import DEFAULT_STAGES, HRNet
 from pose_estimation_tpu_torch.models.layers import (
     Conv, ConvNorm, ConvTransposeNorm, Named, upsample2x)
@@ -72,12 +73,21 @@ def _gather_pixels(maps: torch.Tensor, choose: torch.Tensor) -> torch.Tensor:
     return torch.gather(maps.reshape(b, h * w, c), 1, idx)
 
 
-class KRRN(Named):
-    """KRRN with FusionNetLite; `dtype` is the activation dtype (bf16 for
-    the shipped train.amp=True), params stay fp32."""
+FUSION = {"lite": (FusionNetLite, 1280), "full": (FusionNet, 1664)}
 
-    def __init__(self, cfg: Config, dtype=torch.float32):
+
+class KRRN(Named):
+    """KRRN; `dtype` is the activation dtype (bf16 for the shipped
+    train.amp=True), params stay fp32. `fusion_variant` "lite" (the
+    default) or "full" picks the fusion net, as the JAX KRRN's field."""
+
+    def __init__(self, cfg: Config, dtype=torch.float32,
+                 fusion_variant: str = "lite"):
         super().__init__()
+        if fusion_variant not in FUSION:
+            raise ValueError(f"fusion_variant {fusion_variant!r}: 'lite' or "
+                             "'full'")
+        fusion_cls, fusion_width = FUSION[fusion_variant]
         m = cfg.module
         self.cfg, self.dtype = cfg, dtype
         num_cls = m.num_cls
@@ -92,10 +102,11 @@ class KRRN(Named):
                            self.mask_outc + self.region_outc + xyz_outc,
                            m.norm, dtype))
         self.child(NMLHead(outc, m.nmlnet.hidden, nml_outc, m.norm, dtype))
-        self.child(FusionNetLite(m.gcn3d.neighbor_num, m.gcn3d.support_num,
-                                 m.norm, dtype))
-        self.child(PoseNet(1280 + num_cls, False, m.posenet.out_t, m.norm,
-                           dtype))
+        self.fusion_name = f"{fusion_cls.__name__}_0"
+        self.child(fusion_cls(m.gcn3d.neighbor_num, m.gcn3d.support_num,
+                              m.norm, dtype))
+        self.child(PoseNet(fusion_width + num_cls, False, m.posenet.out_t,
+                           m.norm, dtype))
 
     def forward(self, x, p_emb, choose, cls, opt_pose: bool = True,
                 train: bool = False, generator=None):
@@ -115,7 +126,8 @@ class KRRN(Named):
         nml_emb = _gather_pixels(nml_sel, choose)
         pred_t = t_res = None
         if opt_pose:
-            feat = self.FusionNetLite_0(p_emb, xyz_emb, nml_emb, gen)
+            feat = getattr(self, self.fusion_name)(p_emb, xyz_emb, nml_emb,
+                                                   gen)
             onehot = F.one_hot(cls.long(), num_cls).to(feat.dtype)
             onehot = onehot[:, None, :].expand(*feat.shape[:2], num_cls)
             feat = torch.cat([feat, onehot], -1)

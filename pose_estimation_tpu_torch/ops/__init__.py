@@ -1,2 +1,3 @@
-"""Hand-written CUDA kernels of the serving path, each beside its plain
-PyTorch version (pointops: KNN; gcn: fused 3D-GCN aggregates)."""
+"""Hand-written CUDA kernels, each beside its plain PyTorch version
+(pointops: KNN, nearest source point; gcn: the fused and the wide-table
+3D-GCN aggregates)."""

@@ -8,10 +8,17 @@ versions.
                                      * (X_si[idx] @ W_si + b_si)
                  kernels csrc/gcn.cu:table_kernel + linear_agg_kernel,
                  replacing pallas_gcn.py:_linear_multi_kernel
-  aggregate_linear / aggregate
-                 the per-stream forms (gcn_aggregate_linear / gcn_aggregate
-                 of the JAX package), plain PyTorch: level 2's 9-D
-                 ConvLayers and the wide ConvLayer path use them.
+  aggregate      out = sum_s max_k relu(nd . dirs) * F[idx], one stream,
+                 D = 3 or 9, the support table F [B, M, S*O] given
+                 kernel csrc/gcn.cu:agg_kernel, replacing
+                 pallas_gcn.py:_agg_kernel (gcn_aggregate of the JAX
+                 package): the wide ConvLayer path (the full FusionNet's
+                 fm_4 at S <= 3). Without a table it is one stream of
+                 surface_multi (ConvSurface called without parts).
+  aggregate_linear
+                 the per-stream narrow form (gcn_aggregate_linear of the
+                 JAX package), plain PyTorch: level 2's 9-D narrow
+                 ConvLayers use it.
 
 Streams share one KNN graph idx [B, N, K]. Inputs: nds list of [B, N, K, D]
 unit directions, dirs_list list of [D, S*O] normalised kernels, xs list of
@@ -25,7 +32,11 @@ Numerics (the plain versions define them; the kernels follow them):
   linear   inputs in the dtype of xs (fp32 or bf16); the support table
            T = X @ W + b accumulates in fp32 and is stored in that dtype;
            theta, the product, the max and the sum are fp32.
-Dot products of 3 terms are summed as (x + y) + z, supports in order.
+  aggregate  every op in the table's dtype, as the XLA gcn_aggregate: in
+           bf16 each product and sum of theta, the product with F and
+           each support sum is rounded to bf16.
+Dot products of D terms are summed as ((x + y) + z) + ..., supports in
+order.
 
 The wrappers take the plain version for CPU tensors only (ordinary
 autograd through it); a CUDA tensor launches the kernel or raises. On the
@@ -117,9 +128,20 @@ def aggregate_linear(nd, dirs, x, w_support, b_support, idx,
     return _sum_supports(acc, support_num).float()
 
 
-def aggregate(nd, dirs, feats, idx, support_num: int) -> torch.Tensor:
+def _theta_only_check(nd):
+    if nd.shape[-1] != 3:
+        raise ValueError("aggregate without a feature table takes 3-D "
+                         f"directions only (ConvSurface), got D={nd.shape[-1]}")
+
+
+def aggregate_plain(nd, dirs, feats, idx, support_num: int) -> torch.Tensor:
     """One stream of the wide-table aggregate (the XLA gcn_aggregate):
-    feats [B, M, S*O] support table gathered per slot. Plain PyTorch."""
+    feats [B, M, S*O] support table gathered per slot, every op in feats'
+    dtype. feats=None is ConvSurface's theta-only form, which is one
+    stream of surface_multi_plain (3-D directions only)."""
+    if feats is None:
+        _theta_only_check(nd)
+        return surface_multi_plain([nd], [dirs], support_num)[0]
     dt = feats.dtype
     nd, dirs = nd.to(dt), dirs.to(dt)
     acc = None
@@ -313,3 +335,79 @@ def _linear_launch(nds, dirs_list, xs, ws, bs, idx, support_num: int):
     _build.check(rc, "pose_gcn_linear")
     linear_multi.launches += 1
     return out
+
+
+def _aggregate_launch(nd, dirs, feats, idx, support_num: int):
+    dt = feats.dtype
+    b, n, k, d = nd.shape
+    m, so = feats.shape[1], feats.shape[2]
+    o = so // support_num
+    nd = nd.to(dt).contiguous()
+    dirs = dirs.to(dt).contiguous()
+    feats = feats.contiguous()
+    out = torch.empty((b, n, o), dtype=torch.float32, device=feats.device)
+    lib = _build.library()
+    with torch.cuda.device(feats.device):
+        rc = lib.pose_gcn_aggregate(
+            idx.data_ptr(), nd.data_ptr(), dirs.data_ptr(), feats.data_ptr(),
+            out.data_ptr(), b, n, m, k, d, support_num, o,
+            1 if dt == _BF16 else 0, torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "pose_gcn_aggregate")
+    aggregate.launches += 1
+    return out
+
+
+class _Aggregate(torch.autograd.Function):
+    """Forward: the wide-table kernel, [B, N, O]. Backward: the plain
+    version's vector-Jacobian product (the JAX package has no backward
+    kernel for it either); idx gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, support_num, nd, dirs, feats, idx):
+        ctx.support_num = support_num
+        ctx.save_for_backward(nd, dirs, feats, idx)
+        return _aggregate_launch(nd, dirs, feats, idx, support_num)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = ctx.support_num
+        plain = lambda ts: [aggregate_plain(*ts, s)]
+        return (None, *_recompute_vjp(plain, ctx.saved_tensors,
+                                      ctx.needs_input_grad[1:], g))
+
+
+def aggregate(nd, dirs, feats, idx, support_num: int) -> torch.Tensor:
+    """Per-stream wide-table aggregate -> [B, N, O] fp32, differentiable
+    in nd, dirs and feats: nd [B, N, K, D] (D = 3 or 9), dirs [D, S*O],
+    feats [B, M, S*O] fp32 or bf16, idx [B, N, K] int32. feats=None is
+    the theta-only form (gcn_aggregate without a table): one stream of
+    surface_multi, whose kernel it launches on the card."""
+    if feats is None:
+        _theta_only_check(nd)
+        return surface_multi([nd], [dirs], support_num)[0]
+    ts = [nd, dirs, feats, idx]
+    if _on_cpu(*ts):
+        return aggregate_plain(nd, dirs, feats, idx, support_num)
+    _check_cuda("aggregate", ts, feats.device)
+    dt = feats.dtype
+    if dt not in (torch.float32, _BF16):
+        raise TypeError(f"aggregate: dtype {dt}")
+    for t in (nd, dirs):
+        if t.dtype not in (torch.float32, _BF16):
+            raise TypeError(f"aggregate: dtype {t.dtype}")
+    if idx.dtype != torch.int32 or idx.ndim != 3 or not idx.is_contiguous():
+        raise ValueError("aggregate: idx must be contiguous [B, N, K] int32")
+    b, n, k = idx.shape
+    d = nd.shape[-1]
+    so = dirs.shape[-1]
+    if d not in (3, 9) or nd.shape != (b, n, k, d):
+        raise ValueError("aggregate: nd must be [B, N, K, D], D = 3 or 9")
+    if (dirs.shape != (d, so) or feats.ndim != 3 or feats.shape[0] != b
+            or feats.shape[2] != so or so % support_num
+            or not 1 <= support_num <= 8 or so // support_num > 1024):
+        raise ValueError("aggregate: dirs [D, S*O] and feats [B, M, S*O] "
+                         "with S <= 8 and O <= 1024 expected")
+    return _Aggregate.apply(support_num, nd, dirs, feats, idx)
+
+
+aggregate.launches = 0

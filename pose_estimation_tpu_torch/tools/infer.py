@@ -9,7 +9,8 @@ stdout.
 
 Usage:
   python -m pose_estimation_tpu_torch.tools.infer --synthetic \
-      --batch_size 32 --output poses.jsonl [--params params.npz]
+      --batch_size 32 --output poses.jsonl [--params params.npz] \
+      [--device cpu]
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ def main(argv=None, cfg=None):
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--output", default="poses.jsonl")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", default=None,
-                   help="default: cuda when available, else cpu")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; no card raises) or cpu")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -48,19 +49,19 @@ def main(argv=None, cfg=None):
 
     from pose_estimation_tpu_torch.data.batching import (
         eval_indices, make_batch)
+    from pose_estimation_tpu_torch.device import resolve_device
     from pose_estimation_tpu_torch.models.krrn import KRRN
     from pose_estimation_tpu_torch.serve import build_infer_step
 
     if not args.synthetic:
         raise SystemExit("only --synthetic frames are ported; the LineMOD "
                          "readers are not")
+    device = resolve_device(args.device)
     cfg = cfg or load_config(args.config)
     from pose_estimation_tpu_torch.data.synthetic import SyntheticPoseDataset
     dataset = SyntheticPoseDataset(num_objects=cfg.module.num_cls,
                                    frames_per_object=args.frames_per_object,
                                    num_regions=cfg.data.num_regions)
-    device = torch.device(args.device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -1,7 +1,8 @@
 """Trainer (counterpart of train/trainer.py): epoch loops, eval with the
 on-device pose recovery of serve.EvalStep, best-model tracking, manual LR
-decay, checkpoints, JSONL metrics. One device (cuda when available, else
-the CPU); the multi-GPU trainer is a later slice, as are the TensorBoard
+decay, checkpoints, JSONL metrics. One device: the card unless the caller
+passes device="cpu" (no card raises); the multi-GPU trainer is a later
+slice, as are the TensorBoard
 mirror and the eval overlay images (utils/tb, utils/viz).
 """
 
@@ -18,6 +19,7 @@ from pose_estimation_tpu_torch.configs.schema import Config
 from pose_estimation_tpu_torch.data.batching import (
     epoch_indices, eval_indices)
 from pose_estimation_tpu_torch.data.prefetch import prefetched_epoch
+from pose_estimation_tpu_torch.device import resolve_device
 from pose_estimation_tpu_torch.metrics.metric import PerObjectAccumulator
 from pose_estimation_tpu_torch.models.krrn import KRRN
 from pose_estimation_tpu_torch.serve import build_eval_step
@@ -56,16 +58,17 @@ def _generator(seed: int, stream: int, epoch: int, device="cpu"):
 
 class Trainer:
     def __init__(self, cfg: Config, dataset, log_dir: str = "runs/default",
-                 resume: str | None = None):
+                 model=None, resume: str | None = None, device="cuda"):
+        """`model` (default: the config's KRRN with seeded random
+        weights) is moved to `device`."""
         self.cfg = cfg
         self.dataset = dataset
-        self.device = torch.device(
-            "cuda" if torch.cuda.is_available() else "cpu")
+        self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.manual_seed(cfg.seed)
         dtype = torch.bfloat16 if cfg.train.amp else torch.float32
-        self.model = KRRN(cfg, dtype=dtype).to(self.device)
+        self.model = (model or KRRN(cfg, dtype=dtype)).to(self.device)
         steps_per_epoch = max(1, len(dataset) // cfg.train.batch_size)
         self.tx = make_optimizer(
             cfg, total_steps=steps_per_epoch * cfg.train.num_epoch)

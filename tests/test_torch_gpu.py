@@ -9,7 +9,8 @@ no JAX; on the machine with the card it runs on its own:
 (--noconftest skips tests/conftest.py, which sets JAX up for the CPU
 tests.) chip_smoke.py checks the
 serving path's full shapes; these tests cover small and ragged shapes, the
-wrappers' input checks and the launch counts of a tiny model.
+wrappers' input checks and the launch counts of tiny models (FusionNetLite
+and the full FusionNet).
 """
 
 import numpy as np
@@ -249,3 +250,101 @@ def test_library_is_built_once(dev):
     assert _build.library() is lib
     so = _build.BUILD_ROOT / _build.source_hash() / "libpose_kernels.so"
     assert so.exists()
+
+
+def _agg_inputs(dev, n, m, k, d, s, o, seed=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    idx = torch.randint(0, m, (2, n, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    return (safe_normalize(r(2, n, k, d)), safe_normalize(r(d, s * o), dim=0),
+            r(2, m, s * o), idx)
+
+
+@pytest.mark.parametrize("d,n,m,k,s,o", [(3, 300, 200, 10, 7, 128),
+                                         (9, 64, 64, 8, 2, 256),
+                                         (9, 37, 90, 5, 3, 40),
+                                         (3, 5, 7, 1, 1, 1000)])
+def test_aggregate_matches_plain(dev, d, n, m, k, s, o):
+    """Kernel 5 rounds as the plain version does, op for op: the aim is
+    the last bit; at most one bf16 ulp of max|ref| in bf16 and 1e-5 *
+    max(1, max|ref|) in fp32."""
+    nd, dirs, feats, idx = _agg_inputs(dev, n, m, k, d, s, o)
+    for dt in (torch.float32, torch.bfloat16):
+        f = feats.to(dt)
+        gcn.aggregate.launches = 0
+        got = gcn.aggregate(nd, dirs, f, idx, s)
+        assert gcn.aggregate.launches == 1
+        ref = gcn.aggregate_plain(nd, dirs, f, idx, s)
+        assert got.shape == (2, n, o) and got.dtype == torch.float32
+        scale = ref.abs().max().item()
+        tol = (2.0 ** -8 * scale if dt == torch.bfloat16
+               else 1e-5 * max(1.0, scale))
+        assert (got - ref).abs().max().item() <= tol
+
+
+def test_aggregate_backward_matches_plain_autograd(dev):
+    nd, dirs, feats, idx = _agg_inputs(dev, 64, 64, 8, 9, 2, 256)
+    cot = torch.randn(2, 64, 256, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (nd, dirs, feats)]
+    twins = [t.clone().requires_grad_() for t in (nd, dirs, feats)]
+    gcn.aggregate(*leaves, idx, 2).backward(cot)
+    gcn.aggregate_plain(*twins, idx, 2).backward(cot)
+    for a, b in zip(leaves, twins):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+
+
+def test_aggregate_theta_only_launches_the_surface_kernel(dev):
+    nd, dirs, _, idx = _agg_inputs(dev, 50, 50, 6, 3, 3, 16)
+    gcn.aggregate.launches = gcn.surface_multi.launches = 0
+    got = gcn.aggregate(nd, dirs, None, idx, 3)
+    assert (gcn.aggregate.launches, gcn.surface_multi.launches) == (0, 1)
+    ref = gcn.aggregate_plain(nd, dirs, None, idx, 3)
+    tol = 2.0 ** -8 * max(1.0, ref.abs().max().item())
+    assert (got - ref).abs().max().item() <= tol
+    nd9, dirs9, _, _ = _agg_inputs(dev, 50, 50, 6, 9, 3, 16)
+    with pytest.raises(ValueError):
+        gcn.aggregate(nd9, dirs9, None, idx, 3)
+
+
+def test_aggregate_rejects_what_the_kernel_does_not_take(dev):
+    nd, dirs, feats, idx = _agg_inputs(dev, 16, 16, 4, 3, 2, 8)
+    with pytest.raises(ValueError):
+        gcn.aggregate(nd, dirs, feats, idx.long(), 2)
+    with pytest.raises(TypeError):
+        gcn.aggregate(nd, dirs, feats.half(), idx, 2)
+    with pytest.raises(ValueError):
+        gcn.aggregate(nd, dirs, feats, idx, 3)           # S*O % S
+    with pytest.raises(ValueError):
+        gcn.aggregate(nd, dirs, feats.cpu(), idx, 2)     # mixed devices
+    nd4, dirs4, feats4, _ = _agg_inputs(dev, 16, 16, 4, 4, 2, 8)
+    with pytest.raises(ValueError):
+        gcn.aggregate(nd4, dirs4, feats4, idx, 2)        # D = 4
+
+
+def test_tiny_full_krrn_launch_counts_and_plain_cpu_parity(dev):
+    """The full FusionNet at S=2: its first fuse layer is wide, so one
+    wide-table aggregate launch per forward beside 3 linear, 1 surface,
+    8 KNN and 2 nearest-source launches."""
+    torch.manual_seed(0)
+    model = KRRN(TINY, fusion_variant="full").eval()
+    rng = np.random.RandomState(0)
+    args = (rng.rand(2, 64, 64, 3).astype(np.float32),
+            (rng.randn(2, 128, 3) * 0.05 + [0, 0, 0.8]).astype(np.float32),
+            rng.randint(0, 64 * 64, (2, 128)).astype(np.int64),
+            np.array([0, 1]))
+    cpu_args = [torch.from_numpy(a) for a in args]
+    with torch.no_grad():
+        ref = model(*cpu_args)
+        model.to(dev)
+        for f in (gcn.linear_multi, gcn.surface_multi, pointops.knn,
+                  pointops.nearest, gcn.aggregate):
+            f.launches = 0
+        got = model(*[a.to(dev) for a in cpu_args])
+    assert (gcn.linear_multi.launches, gcn.surface_multi.launches,
+            pointops.knn.launches, pointops.nearest.launches,
+            gcn.aggregate.launches) == (3, 1, 8, 2, 1)
+    for key, rtol in (("xyz_emb", 1e-4), ("pred_t", 2e-3)):
+        r = ref[key]
+        tol = rtol * max(1.0, r.abs().max().item())
+        assert (got[key].cpu() - r).abs().max().item() <= tol, key

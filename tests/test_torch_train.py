@@ -462,7 +462,7 @@ def test_cli_trains_and_evaluates(tmp_path, capsys):
     log_dir = tmp_path / "run"
     assert cli.main(["--config", str(cfg_file), "--synthetic", "--debug",
                      "--epochs", "1", "--frames_per_object", "3",
-                     "--log_dir", str(log_dir)]) == 0
+                     "--log_dir", str(log_dir), "--device", "cpu"]) == 0
     train = [json.loads(x) for x in
              (log_dir / "train.jsonl").read_text().splitlines()]
     assert train and {"loss", "loss_add", "skipped_nonfinite"} <= set(train[0])
