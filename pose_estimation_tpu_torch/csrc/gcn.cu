@@ -17,6 +17,16 @@
 // _gcn_aggregate_fwd_pallas). The TPU kernels gather neighbour rows with
 // one-hot matmuls, or take a pre-gathered table, because random gathers
 // are slow there; on the card the rows are loaded directly.
+//
+// The linear aggregate (kernel 1) runs in two passes. Pass A builds the
+// support table once per point: in bf16 on the tensor cores (wgmma), where
+// writing the table is its floor; in fp32 on the CUDA cores. Pass B gathers
+// K table rows per point and is bound by those gathers (B*N*K*streams*S*O
+// elements, mostly from L2) and by the fp32 issue rate of theta, product
+// and max; it reads 16 bytes per thread per slot and keeps several slots'
+// loads in flight.
+#include <stdint.h>
+
 #include "common.cuh"
 
 // ---------------------------------------------------------------------------
@@ -71,22 +81,259 @@ __global__ void surface_kernel(const bf16* __restrict__ nd,
 // ---------------------------------------------------------------------------
 // Linear aggregate (kernel 1), pass A: the support table.
 // table[r, st, c] = X[r, st*cin : (st+1)*cin] @ W[st, :, c] + b[st, c],
-// rows r over B*M points, fp32 accumulation, stored in the input dtype.
-// A plain 64x64 shared-memory tile with a 16-deep k step; each of the 256
-// threads owns a 4x4 strided block of outputs. This is the product the TPU
-// kernel computes per neighbour slot in its body (pallas_gcn.py:257-260);
-// here it runs once per point instead of once per slot (~22 GFLOP at level
-// 0 instead of ~225), and is bound by shared-memory bandwidth on the
-// card's CUDA cores.
+// rows r over B*M points, fp32 accumulation, the fp32 bias added, rounded
+// once to the input dtype and stored [B*M, streams, S*O], the layout pass B
+// reads. This is the product the TPU kernel computes per neighbour slot in
+// its body (pallas_gcn.py:257-260); here it runs once per point instead of
+// once per slot (22.5 GFLOP at level 0 instead of ~225).
+//
+// bf16: table_wgmma_kernel. A block owns BM rows of one stream (BM = 256
+// for Cin <= 128, else 128: one warpgroup per 64 rows) and walks a range
+// of 128-column tiles; each warpgroup issues wgmma m64n128k16 (bf16 in,
+// fp32 accumulators in registers) on operands in shared memory, in the
+// no-swizzle core-matrix layout (8 rows x 16 bytes per core matrix). The
+// pass is bound by moving X and W from L2 into shared memory, so the X
+// rows stay resident for all of the block's column tiles (loaded once,
+// rows past B*M and k past Cin zero-filled) and only W streams, in k
+// chunks of 64 through a three-stage cp.async ring (16 bytes per thread,
+// neighbouring threads on neighbouring addresses), two chunks ahead of the
+// products; a large BM halves how often W is re-read. W arrives from the
+// wrapper transposed to [streams, S*O padded to 128, Cin padded to 64], so
+// its chunks need no masks; a Cin that is not a multiple of 8 takes plain
+// loads for X. The epilogue adds the fp32 bias, rounds once to bf16 and
+// stages the tile in shared memory (16-byte chunks XOR-swizzled by row),
+// so the table is written in whole 256-byte row segments. Cin above 512
+// (no layer has one) takes table_kernel. The products take ~0.02 ms at
+// level 0; the floor is the table write (176 MB, ~0.05 ms at 3.35 TB/s).
+//
+// fp32: table_kernel on the CUDA cores, a 64x64 shared-memory tile with a
+// 16-deep k step, each of 256 threads owning a 4x4 strided block of
+// outputs; bound by shared-memory bandwidth. TF32 on the tensor cores
+// would not hold the fp32 tolerance (1e-4 of max|ref|): it keeps ~3
+// decimal digits.
 // ---------------------------------------------------------------------------
+#define WG_BN 128     // table columns per tile (the wgmma n)
+#define WG_BK 64      // k per W chunk: four wgmma k-steps
+#define WG_STAGES 3   // W ring depth: two chunks' loads in flight
+#define WG_BCHUNK (WG_BN * WG_BK * 2)   // bytes of one W chunk
+#define WG_MAX_CINP 512
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], bf16 operands in shared memory
+// (both k-major), fp32 accumulators d in the warpgroup's registers; row
+// (w*16 + lane/4 + 8*(i/2 % 2)), column (i/4*8 + lane%4*2 + i%2) of the
+// tile sits in d[i] of lane `lane` of warp w.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));   // acc = 0: D = A * B
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products (they change d behind its back until the wait).
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A wgmma operand descriptor for a no-swizzle tile in shared memory: lbo
+// bytes between core matrices adjacent in k, sbo between 8-row groups.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// Byte offset of the 16-byte vector (row r, k-group kg of 8 values) in a
+// tile of `rows` rows: core matrices k-group-major, so lbo = rows * 16 and
+// sbo = 128.
+__device__ __forceinline__ int core_off(int r, int kg, int rows) {
+  return ((kg * (rows >> 3) + (r >> 3)) << 7) + ((r & 7) << 4);
+}
+
+// Vector v of a 64-deep chunk: 8 rows per 8 threads (conflict-free 16-byte
+// stores to shared memory), 4 k-groups of one row per 4 threads (64
+// contiguous bytes of global memory).
+__device__ __forceinline__ void chunk_vec(int v, int& r, int& kg) {
+  kg = ((v >> 5) & 1) * 4 + ((v >> 3) & 3);
+  r = (v >> 6) * 8 + (v & 7);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// Byte offset of (row r, 16-byte chunk j) of the BM x 128 bf16 output tile
+// staged row-major in shared memory, chunks XOR-swizzled by row so that the
+// accumulator fragments' writes do not conflict.
+__device__ __forceinline__ int out_off(int r, int j) {
+  return (r << 8) + ((j ^ (r & 7)) << 4);
+}
+
+template <int WGS>   // warpgroups per block; BM = 64 * WGS rows
+__global__ void __launch_bounds__(WGS * 128)
+table_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
+                   const float* __restrict__ bias, bf16* __restrict__ table,
+                   int rows, int streams, int cin, int cinp, int so, int sop,
+                   int tiles_per_block) {
+  constexpr int BM = 64 * WGS, NT = WGS * 128;
+  extern __shared__ __align__(128) char smem[];
+  char* const sa = smem;                              // [kchunks][BM x 64]
+  char* const ring = sa + BM * cinp * 2;              // [WG_STAGES][chunk]
+  char* const so_tile = ring + WG_STAGES * WG_BCHUNK; // [BM][128] bf16
+  const int st = blockIdx.z;
+  const int row0 = blockIdx.x * BM;
+  const int nt0 = blockIdx.y * tiles_per_block;
+  const int nt1 = min(sop / WG_BN, nt0 + tiles_per_block);
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int kchunks = cinp / WG_BK;
+  const int iters = (nt1 - nt0) * kchunks;
+  const bf16* ws = wt + (size_t)st * sop * cinp;
+
+  // X rows [row0, row0 + BM), all of Cin, once
+  {
+    const size_t xstride = (size_t)streams * cin;
+    const bf16* xs = x + (size_t)st * cin;
+    const bool vec = (cin & 7) == 0;
+    for (int v = tid; v < kchunks * BM * 8; v += NT) {
+      int r, kg;
+      chunk_vec(v % (BM * 8), r, kg);
+      const int kc = v / (BM * 8);
+      const int gr = row0 + r, gk = kc * WG_BK + kg * 8;
+      const bool in = gr < rows && gk < cin;
+      const bf16* src = in ? xs + (size_t)gr * xstride + gk : xs;
+      char* dst = sa + kc * BM * 128 + core_off(r, kg, BM);
+      if (vec) {
+        cp_async16(dst, src, in);
+      } else {
+        bf16 h[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          h[e] = in && gk + e < cin ? src[e] : __float2bfloat16_rn(0.f);
+        memcpy(dst, h, 16);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+
+  // the W chunk of iteration `it` into its ring slot
+  auto load_w = [&](int it) {
+    char* sb = ring + (it % WG_STAGES) * WG_BCHUNK;
+    const int k0 = (it % kchunks) * WG_BK;
+    const bf16* wc = ws + (size_t)(nt0 + it / kchunks) * WG_BN * cinp + k0;
+#pragma unroll
+    for (int l = 0; l < WG_BN * WG_BK / 8 / NT; ++l) {
+      int n, kg;
+      chunk_vec(l * NT + tid, n, kg);
+      cp_async16(sb + core_off(n, kg, WG_BN), wc + (size_t)n * cinp + kg * 8,
+                 true);
+    }
+  };
+
+  float d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0.f;
+  const int lane = tid & 31;
+  const int fr = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);  // tile row
+  const float* bst = bias + (size_t)st * so;
+  for (int it = 0; it < WG_STAGES - 1; ++it) {
+    if (it < iters) load_w(it);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int it = 0; it < iters; ++it) {
+    if (it + WG_STAGES - 1 < iters) load_w(it + WG_STAGES - 1);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    // X and this iteration's W chunk have landed
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(WG_STAGES - 1)
+                 : "memory");
+    // this thread's generic-proxy stores -> wgmma's async-proxy reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const char* sb = ring + (it % WG_STAGES) * WG_BCHUNK;
+    const int kc = it % kchunks;
+    fence_acc(d);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < WG_BK / 16; ++ks) {
+      const uint64_t da = wgmma_desc(
+          sa + kc * BM * 128 + core_off(wg * 64, 2 * ks, BM), BM * 16, 128);
+      const uint64_t db = wgmma_desc(sb + core_off(0, 2 * ks, WG_BN),
+                                     WG_BN * 16, 128);
+      wgmma_m64n128k16(d, da, db, kc > 0 || ks > 0);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(d);
+    if (kc == kchunks - 1) {
+      // the tile is done: bias, bf16, staged, then whole-row stores
+      const int col0 = (nt0 + it / kchunks) * WG_BN;
+#pragma unroll
+      for (int n8 = 0; n8 < WG_BN / 8; ++n8) {
+        const int c = col0 + n8 * 8 + (lane & 3) * 2;
+        const float b0 = c < so ? bst[c] : 0.f;
+        const float b1 = c < so ? bst[c + 1] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          *(__nv_bfloat162*)(so_tile + out_off(fr + 8 * i, n8) +
+                             (lane & 3) * 4) =
+              __floats2bfloat162_rn(__fadd_rn(d[n8 * 4 + i * 2], b0),
+                                    __fadd_rn(d[n8 * 4 + i * 2 + 1], b1));
+      }
+      __syncthreads();
+      for (int q = tid; q < BM * WG_BN / 8; q += NT) {
+        const int r = q >> 4, j = q & 15;
+        const int gr = row0 + r, gc = col0 + j * 8;
+        if (gr < rows && gc < so)   // so is a multiple of 8
+          *(uint4*)(table + ((size_t)gr * streams + st) * so + gc) =
+              *(const uint4*)(so_tile + out_off(r, j));
+      }
+    }
+    __syncthreads();   // the ring slot and the staged tile are free again
+  }
+}
+
 #define TB 64
 #define TK 16
 
+// W[st][k][c] sits at w[st * w_st + k * w_k + c * w_c].
 template <typename T>
 __global__ void __launch_bounds__(256)
 table_kernel(const T* __restrict__ x, const T* __restrict__ w,
              const float* __restrict__ bias, T* __restrict__ table, int rows,
-             int streams, int cin, int so) {
+             int streams, int cin, int so, long long w_st, int w_k,
+             int w_c) {
   __shared__ float as[TK][TB + 1];
   __shared__ float bs[TK][TB];
   const int st = blockIdx.z;
@@ -96,7 +343,7 @@ table_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int ty = threadIdx.x / 16;
   const size_t xstride = (size_t)streams * cin;
   const T* xs = x + (size_t)st * cin;
-  const T* ws = w + (size_t)st * cin * so;
+  const T* ws = w + st * w_st;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -114,8 +361,9 @@ table_kernel(const T* __restrict__ x, const T* __restrict__ w,
                                            : 0.f;
       const int bk = e / TB, bc = e % TB;
       const int gk2 = k0 + bk, gc = col0 + bc;
-      bs[bk][bc] = (gk2 < cin && gc < so) ? to_f32(ws[(size_t)gk2 * so + gc])
-                                          : 0.f;
+      bs[bk][bc] = (gk2 < cin && gc < so)
+                       ? to_f32(ws[(size_t)gk2 * w_k + (size_t)gc * w_c])
+                       : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -148,56 +396,140 @@ table_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 // ---------------------------------------------------------------------------
 // Linear aggregate (kernel 1), pass B: gather, theta, product, max, sum.
-// One block per (point tile, batch, stream); thread o keeps its 3*S
-// direction weights in registers for the whole tile. For each point and
-// neighbour slot the block reads the neighbour's table row for its stream:
-// S*O contiguous values, so each warp's loads coalesce. theta and the
-// product are fp32. Bound by the table reads (B*N*K*streams*S*O elements,
-// mostly from L2: one batch element's table is a few MB) and the fp32
-// issue rate.
+// out[p, st*O + o] = sum_s max_k relu(<nd[p, k, st], dirs[st, :, s*O + o]>)
+//                                   * table[b, idx[p, k], st, s*O + o]
+// Each thread owns one support s and C = 16 / sizeof(T) consecutive
+// channels (8 in bf16, 4 in fp32) of one stream: one 16-byte load of the
+// neighbour's table row per slot, its 3*C direction weights and C running
+// maxima in registers. A block serves one stream and a tile of AGG_PTS
+// points, PC of them at a time (PC * S*O/C threads, 224 at O = 128 in
+// bf16: whole warps, and small enough blocks that several fit per SM and
+// keep enough row loads in flight to cover L2's latency). It stages the
+// tile's idx and nd with one coalesced load, and issues the row loads of
+// AGG_U slots before using them. The sum over supports goes through
+// shared memory (double-buffered, one barrier per PC points) and is taken
+// in order s = 0..S-1, the plain version's order. theta is contracted
+// into FMAs: it moves theta by ~1 fp32 ulp, far inside the tolerances
+// (1e-4 fp32, 2e-2 bf16, of max|ref|), and saves two of the ~9 issue
+// slots per element, the other bound of this pass.
 // ---------------------------------------------------------------------------
-template <typename T, int S>
-__global__ void linear_agg_kernel(const int* __restrict__ idx,
-                                  const T* __restrict__ nd,
-                                  const T* __restrict__ dirs,
-                                  const T* __restrict__ table,
-                                  float* __restrict__ out, int N, int M,
-                                  int K, int streams, int O, int pts) {
-  const int o = threadIdx.x;
-  if (o >= O) return;
-  const int b = blockIdx.y;
-  const int st = blockIdx.z;
-  const int so = S * O;
-  const T* dr = dirs + (size_t)st * 3 * so;
-  float d0[S], d1[S], d2[S];
+#define AGG_U 4          // slots whose row loads are in flight together
+#define AGG_PTS 8        // points per block
+#define AGG_THREADS 512  // at most, per block; registers capped at 64 so
+                         // that 1024 threads' loads are in flight per SM
+
+__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    d0[s] = to_f32(dr[s * O + o]);
-    d1[s] = to_f32(dr[so + s * O + o]);
-    d2[s] = to_f32(dr[2 * so + s * O + o]);
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
-  const int n_end = min(N, (blockIdx.x + 1) * pts);
-  for (int n = blockIdx.x * pts; n < n_end; ++n) {
-    const size_t pn = (size_t)b * N + n;
-    float m[S];
+}
+
+__device__ __forceinline__ void unpack16(const uint4& v, float (&f)[4]) {
+  f[0] = __uint_as_float(v.x);
+  f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z);
+  f[3] = __uint_as_float(v.w);
+}
+
+template <typename T, int S>
+__global__ void __launch_bounds__(AGG_THREADS, 2)
+linear_agg_kernel(const int* __restrict__ idx, const T* __restrict__ nd,
+                  const float* __restrict__ dirs, const T* __restrict__ table,
+                  float* __restrict__ out, long long points, int N, int M,
+                  int K, int streams, int O, int pc) {
+  constexpr int C = 16 / sizeof(T);
+  extern __shared__ __align__(16) float agg_smem[];
+  const int so = S * O, oc = O / C, per = S * oc;
+  const int tid = threadIdx.x;
+  const int pl = tid / per, j = tid - pl * per;   // point lane, slot
+  const int s = j / oc, o0 = (j - s * oc) * C;
+  const int st = blockIdx.y;
+  float* red = agg_smem;                               // [2][pc][so]
+  int* s_idx = (int*)(agg_smem + 2 * pc * so);         // [AGG_PTS][K]
+  float* s_nd = (float*)(s_idx + AGG_PTS * K);         // [AGG_PTS][K][3]
+  const long long p0 = (long long)blockIdx.x * AGG_PTS;
+  const int np = (int)min((long long)AGG_PTS, points - p0);
+
+  // fp32 weights (the wrapper rounds them to T first): bf16 ones would be
+  // unpacked again for every element, 3 more issue slots out of ~10
+  float d0[C], d1[C], d2[C];
+  {
+    const float* dr = dirs + (size_t)st * 3 * so + s * O + o0;
 #pragma unroll
-    for (int s = 0; s < S; ++s) m[s] = -INFINITY;
-    for (int k = 0; k < K; ++k) {
-      const int j = idx[pn * K + k];
-      const T* v = nd + (pn * K + k) * streams * 3 + st * 3;
-      const float n0 = to_f32(v[0]), n1 = to_f32(v[1]), n2 = to_f32(v[2]);
-      const T* row = table + (((size_t)b * M + j) * streams + st) * so;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const float th =
-            fmaxf(dot3_rn(n0, n1, n2, d0[s], d1[s], d2[s]), 0.f);
-        m[s] = fmaxf(m[s], __fmul_rn(th, to_f32(row[s * O + o])));
-      }
+    for (int c = 0; c < C; ++c) {
+      d0[c] = __ldg(dr + c);
+      d1[c] = __ldg(dr + so + c);
+      d2[c] = __ldg(dr + 2 * so + c);
     }
-    float acc = m[0];
+  }
+  for (int e = tid; e < np * K; e += blockDim.x) s_idx[e] = idx[p0 * K + e];
+  for (int e = tid; e < np * K * 3; e += blockDim.x) {
+    const int q = e / 3;   // (point, slot) of this value
+    s_nd[e] = to_f32(nd[((p0 * K + q) * streams + st) * 3 + (e - q * 3)]);
+  }
+  __syncthreads();
+
+  const size_t rstride = (size_t)streams * so;   // between table rows
+  for (int p1 = 0; p1 < np; p1 += pc) {
+    const int p = p1 + pl;
+    float* buf = red + ((p1 / pc) & 1) * pc * so;
+    if (p < np) {
+      const long long pn = p0 + p;
+      const T* tb = table + (size_t)(pn / N) * M * rstride + (size_t)st * so +
+                    s * O + o0;
+      const int* ip = s_idx + p * K;
+      const float* np3 = s_nd + p * K * 3;
+      float m[C];
 #pragma unroll
-    for (int s = 1; s < S; ++s) acc = __fadd_rn(acc, m[s]);
-    out[pn * streams * O + st * O + o] = acc;
+      for (int c = 0; c < C; ++c) m[c] = -INFINITY;
+      for (int k0 = 0; k0 < K; k0 += AGG_U) {
+        uint4 v[AGG_U];
+#pragma unroll
+        for (int u = 0; u < AGG_U; ++u)
+          if (k0 + u < K)
+            v[u] = __ldg((const uint4*)(tb + (size_t)ip[k0 + u] * rstride));
+#pragma unroll
+        for (int u = 0; u < AGG_U; ++u) {
+          if (k0 + u < K) {
+            const float* n = np3 + (k0 + u) * 3;
+            const float n0 = n[0], n1 = n[1], n2 = n[2];
+            float f[C];
+            unpack16(v[u], f);
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              const float th = fmaf(n2, d2[c], fmaf(n1, d1[c], n0 * d0[c]));
+              m[c] = fmaxf(m[c], fmaxf(th, 0.f) * f[c]);
+            }
+          }
+        }
+      }
+      float* dst = buf + pl * so + s * O + o0;
+#pragma unroll
+      for (int c = 0; c < C; c += 4)
+        *(float4*)(dst + c) = make_float4(m[c], m[c + 1], m[c + 2], m[c + 3]);
+    }
+    __syncthreads();
+    // the sum over supports: one thread per (point lane, C channels)
+    const int sp = tid / oc, q0 = (tid - sp * oc) * C;
+    if (sp < pc && p1 + sp < np) {
+      const float* src = buf + sp * so + q0;
+      float acc[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[c] = src[c];
+#pragma unroll
+      for (int s2 = 1; s2 < S; ++s2)
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          acc[c] = __fadd_rn(acc[c], src[s2 * O + c]);
+      float* o = out + ((p0 + p1 + sp) * streams + st) * O + q0;
+#pragma unroll
+      for (int c = 0; c < C; c += 4)
+        *(float4*)(o + c) = make_float4(acc[c], acc[c + 1], acc[c + 2],
+                                        acc[c + 3]);
+    }
   }
 }
 
@@ -283,33 +615,91 @@ extern "C" int pose_gcn_surface(const void* nd, const void* dirs, float* out,
 }
 
 template <typename T>
+static int launch_table(const void* x, const void* w, const float* bias,
+                        void* table, int rows, int streams, int cin, int so,
+                        cudaStream_t stream) {
+  dim3 grid((so + TB - 1) / TB, (rows + TB - 1) / TB, streams);
+  table_kernel<T><<<grid, 256, 0, stream>>>(
+      (const T*)x, (const T*)w, bias, (T*)table, rows, streams, cin, so,
+      (long long)cin * so, so, 1);
+  return pose_last_error();
+}
+
+// bf16: w is [streams, round_up(so, WG_BN), round_up(cin, WG_BK)], W
+// transposed and zero-padded by the wrapper (ops/gcn.py:_wgmma_weights).
+template <>
+int launch_table<bf16>(const void* x, const void* w, const float* bias,
+                       void* table, int rows, int streams, int cin, int so,
+                       cudaStream_t stream) {
+  const int cinp = (cin + WG_BK - 1) / WG_BK * WG_BK;
+  const int sop = (so + WG_BN - 1) / WG_BN * WG_BN;
+  if (cinp > WG_MAX_CINP) {   // w is still [streams, sop, cinp]
+    dim3 grid((so + TB - 1) / TB, (rows + TB - 1) / TB, streams);
+    table_kernel<bf16><<<grid, 256, 0, stream>>>(
+        (const bf16*)x, (const bf16*)w, bias, (bf16*)table, rows, streams,
+        cin, so, (long long)sop * cinp, 1, cinp);
+    return pose_last_error();
+  }
+  const int wgs = cinp <= 128 ? 4 : 2;
+  const int bm = 64 * wgs;
+  const int row_tiles = (rows + bm - 1) / bm;
+  // split the column tiles over blocks until ~2 blocks per SM are there
+  const int ntiles = sop / WG_BN;
+  const int split = min(ntiles, max(1, (2 * 132 + row_tiles * streams - 1) /
+                                           (row_tiles * streams)));
+  const int per = (ntiles + split - 1) / split;
+  dim3 grid(row_tiles, (ntiles + per - 1) / per, streams);
+  const int smem = bm * cinp * 2 + WG_STAGES * WG_BCHUNK + bm * WG_BN * 2;
+  auto fn = wgs == 4 ? table_wgmma_kernel<4> : table_wgmma_kernel<2>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  fn<<<grid, wgs * 128, smem, stream>>>((const bf16*)x, (const bf16*)w, bias,
+                                        (bf16*)table, rows, streams, cin,
+                                        cinp, so, sop, per);
+  return pose_last_error();
+}
+
+template <typename T>
 static int launch_linear(const int* idx, const void* nd, const void* dirs,
                          const void* x, const void* w, const float* bias,
                          void* table, float* out, int B, int N, int M, int K,
                          int streams, int cin, int S, int O,
                          cudaStream_t stream) {
+  constexpr int C = 16 / sizeof(T);
   const int so = S * O;
-  const int rows = B * M;
-  dim3 tgrid((so + TB - 1) / TB, (rows + TB - 1) / TB, streams);
-  table_kernel<T><<<tgrid, 256, 0, stream>>>(
-      (const T*)x, (const T*)w, bias, (T*)table, rows, streams, cin, so);
-  int err = pose_last_error();
-  if (err) return err;
-  dim3 agrid((N + GCN_PTS - 1) / GCN_PTS, B, streams);
-  const int threads = (O + 31) / 32 * 32;
-#define AGG_CASE(SS)                                                        \
-  case SS:                                                                  \
-    linear_agg_kernel<T, SS><<<agrid, threads, 0, stream>>>(                \
-        idx, (const T*)nd, (const T*)dirs, (const T*)table, out, N, M, K,   \
-        streams, O, GCN_PTS);                                               \
-    break;
+  const int per = so / C;   // threads per point
+  if (per > AGG_THREADS) return POSE_UNSUPPORTED;
+  const int pc = max(1, min(AGG_PTS, 256 / per));   // points at a time
+  typedef void (*agg_fn)(const int*, const T*, const float*, const T*, float*,
+                         long long, int, int, int, int, int, int);
+  agg_fn fn;
   switch (S) {
-    AGG_CASE(1) AGG_CASE(2) AGG_CASE(3) AGG_CASE(4)
-    AGG_CASE(5) AGG_CASE(6) AGG_CASE(7) AGG_CASE(8)
-    default:
-      return POSE_UNSUPPORTED;
+    case 1: fn = linear_agg_kernel<T, 1>; break;
+    case 2: fn = linear_agg_kernel<T, 2>; break;
+    case 3: fn = linear_agg_kernel<T, 3>; break;
+    case 4: fn = linear_agg_kernel<T, 4>; break;
+    case 5: fn = linear_agg_kernel<T, 5>; break;
+    case 6: fn = linear_agg_kernel<T, 6>; break;
+    case 7: fn = linear_agg_kernel<T, 7>; break;
+    case 8: fn = linear_agg_kernel<T, 8>; break;
+    default: return POSE_UNSUPPORTED;
   }
-#undef AGG_CASE
+  const size_t smem = sizeof(float) * (2 * (size_t)pc * so +
+                                       AGG_PTS * (size_t)K * 4);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int err = launch_table<T>(x, w, bias, table, B * M, streams, cin, so,
+                            stream);
+  if (err) return err;
+  const long long points = (long long)B * N;
+  dim3 grid((unsigned)((points + AGG_PTS - 1) / AGG_PTS), streams);
+  fn<<<grid, pc * per, smem, stream>>>(idx, (const T*)nd, (const float*)dirs,
+                                       (const T*)table, out, points, N, M, K,
+                                       streams, O, pc);
   return pose_last_error();
 }
 
@@ -320,7 +710,7 @@ extern "C" int pose_gcn_linear(const int* idx, const void* nd,
                                int cin, int S, int O, int is_bf16,
                                cudaStream_t stream) {
   if (B < 1 || N < 1 || M < 1 || K < 1 || streams < 1 || cin < 1 || O < 1 ||
-      O > 1024 || S < 1 || S > 8)
+      O % 8 || S < 1 || S > 8)
     return POSE_UNSUPPORTED;
   if (is_bf16)
     return launch_linear<bf16>(idx, nd, dirs, x, w, bias, table, out, B, N, M,

@@ -7,95 +7,240 @@
 //   the kk smallest per query, ties to the lower key index (lax.top_k),
 //   the first `drop` columns dropped (drop = 1 excludes self).
 //
-// Design: one thread per query, the running top-kk kept sorted in
-// registers by insertion (kk is a template parameter so the arrays stay in
-// registers); the keys and their squared norms are staged through shared
-// memory in tiles of KNN_TILE, so the [nq, nk] distance matrix never exists
-// anywhere. On the card it is bound by the fp32 issue rate of the distance
-// and compare loop (nq * nk * ~8 flops), not by memory: the inputs are a
-// few hundred KB.
+// What bounds it: the searches of a forward are small (64 to 1024 points
+// per batch element, a few hundred KB of input), so one thread per query
+// leaves most of the card idle, and keeping a sorted top-kk per thread is
+// bound by the insertions: under SIMT a warp pays for any lane's
+// insertion, and early in a scan most keys insert somewhere. The distance
+// work itself is nq * nk * ~9 fp32 operations, microseconds at the card's
+// fp32 rate even at the largest search.
+//
+// Design: each query gets a group of G lanes of one warp (G = 8, 16 or
+// 32, chosen at launch: the smallest that puts batch * nq * G >= KNN_FILL
+// threads on the card, four 128-thread blocks per SM, so the 64-point
+// searches at batch 32 fill it as well as the 1024-point ones). A block
+// stages its batch element's keys with their squared norms (float4) in
+// shared memory, in tiles of up to KNN_TILE, and lane l of a group takes
+// keys l, l + G, ... Distances are computed in the plain version's
+// operation order without FMA contraction (dot3_rn), so they are
+// bit-exact. Three steps, none with a data-dependent branch on the common
+// path:
+//   1. each lane keeps the M = ceil(kk / 8) smallest distances of its keys
+//      (values only, a min/max network);
+//   2. the group's bound tau is the kk-th smallest of its G * M values
+//      (kk rounds of a warp-shuffle minimum), so at least kk keys lie at
+//      or below it and the kk nearest all do; a second scan appends every
+//      key with d <= tau to the query's list in shared memory (~kk-2kk of
+//      them on a point cloud);
+//   3. each candidate's rank is the number of candidates before it in
+//      (distance, index) order, compared lexicographically, so equal
+//      distances go to the lower index, the stable sort's rule: rank r
+//      goes to output slot r - drop.
+// Where ties put more than KNN_CAP keys at or below tau (duplicated
+// points), the block rescans for those queries with a sorted top-kk per
+// lane (lexicographic insertion) and merges the G lists by warp shuffles.
+// The [nq, nk] distance matrix never exists anywhere.
+#include <limits.h>
+
 #include "common.cuh"
 
 #define KNN_THREADS 128
 #define KNN_TILE 1024
+#define KNN_FILL (132 * 4 * KNN_THREADS)
+#define KNN_CAP 64       // candidates kept per query
+#define KNN_QMAX 16      // queries per block at most (G >= 8)
+
+__device__ __forceinline__ float knn_dist(float qx, float qy, float qz,
+                                          float q2, float4 k) {
+  const float inner = dot3_rn(qx, qy, qz, k.x, k.y, k.z);
+  return __fsub_rn(__fadd_rn(q2, k.w), __fmul_rn(2.f, inner));
+}
+
+// (d, i) before (e, j) in a stable sort by distance
+__device__ __forceinline__ bool lex_less(float d, int i, float e, int j) {
+  return d < e || (d == e && i < j);
+}
+
+template <int KK>
+__device__ __forceinline__ void insert_sorted(float (&bd)[KK], int (&bi)[KK],
+                                              float d, int idx) {
+  if (!lex_less(d, idx, bd[KK - 1], bi[KK - 1])) return;
+  bool placed = false;
+#pragma unroll
+  for (int j = KK - 1; j >= 0; --j) {
+    const int p = j > 0 ? j - 1 : 0;
+    const bool shift = j > 0 && lex_less(d, idx, bd[p], bi[p]);
+    if (!placed) {
+      if (shift) {
+        bd[j] = bd[p];
+        bi[j] = bi[p];
+      } else {
+        bd[j] = d;
+        bi[j] = idx;
+        placed = true;
+      }
+    }
+  }
+}
 
 template <int KK>
 __global__ void __launch_bounds__(KNN_THREADS)
 knn_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
-           int* __restrict__ out, int nq, int nk, int drop) {
-  __shared__ float4 tile[KNN_TILE];
+           int* __restrict__ out, int nq, int nk, int drop, int G) {
+  constexpr int M = (KK + 7) / 8;   // G >= 8 lanes hold G * M >= KK values
+  constexpr unsigned FULL = 0xffffffffu;
+  extern __shared__ float4 smem[];
+  const int cap = min(nk, KNN_TILE);
+  float4* tile = smem;                                  // [cap]
+  int* cnt = (int*)(tile + cap);                        // [KNN_QMAX]
+  int2* cand = (int2*)(cnt + KNN_QMAX);                 // [qb][KNN_CAP]
+  const int qb = KNN_THREADS / G;
   const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ql = threadIdx.x / G, lane = threadIdx.x & (G - 1);
+  const int i = blockIdx.x * qb + ql;
   const bool active = i < nq;
-  const float* qb = queries + (size_t)b * nq * 3;
+  const float* qp = queries + ((size_t)b * nq + (active ? i : 0)) * 3;
   const float* kb = keys + (size_t)b * nk * 3;
-
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    qx = qb[(size_t)i * 3 + 0];
-    qy = qb[(size_t)i * 3 + 1];
-    qz = qb[(size_t)i * 3 + 2];
-  }
+  const float qx = qp[0], qy = qp[1], qz = qp[2];
   const float q2 = dot3_rn(qx, qy, qz, qx, qy, qz);
+  const bool resident = nk <= KNN_TILE;   // one tile serves every scan
 
+  // stages keys [base, base + cap) of the batch element; block-wide
+  auto stage = [&](int base) {
+    const int n = min(cap, nk - base);
+    __syncthreads();  // the previous tile is no longer read
+    for (int t = threadIdx.x; t < n; t += KNN_THREADS) {
+      const float* k = kb + (size_t)(base + t) * 3;
+      tile[t] = make_float4(k[0], k[1], k[2], dot3_rn(k[0], k[1], k[2], k[0],
+                                                      k[1], k[2]));
+    }
+    __syncthreads();
+    return n;
+  };
+
+  // 1. the M smallest distances of this lane's keys
+  if (threadIdx.x < qb) cnt[threadIdx.x] = 0;
+  float top[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) top[m] = INFINITY;
+  for (int base = 0; base < nk; base += cap) {
+    const int n = stage(base);
+    if (!active) continue;
+#pragma unroll 4
+    for (int t = lane; t < n; t += G) {
+      float d = fminf(knn_dist(qx, qy, qz, q2, tile[t]), INFINITY);  // NaN
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const float lo = fminf(top[m], d);
+        d = fmaxf(top[m], d);
+        top[m] = lo;
+      }
+    }
+  }
+
+  // 2. tau: the KK-th smallest of the group's G * M values, one popped per
+  //    round (the lowest lane among equal heads)
+  float tau = INFINITY;
+#pragma unroll
+  for (int r = 0; r < KK; ++r) {
+    float v = top[0];
+    int w = lane;
+    for (int off = G >> 1; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(FULL, v, off);
+      const int ow = __shfl_xor_sync(FULL, w, off);
+      if (ov < v || (ov == v && ow < w)) {
+        v = ov;
+        w = ow;
+      }
+    }
+    tau = v;
+    if (w == lane) {
+#pragma unroll
+      for (int m = 0; m + 1 < M; ++m) top[m] = top[m + 1];
+      top[M - 1] = INFINITY;
+    }
+  }
+  for (int base = 0; base < nk; base += cap) {
+    const int n = resident ? cap : stage(base);
+    if (!active) continue;
+#pragma unroll 4
+    for (int t = lane; t < n; t += G) {
+      const float d = knn_dist(qx, qy, qz, q2, tile[t]);
+      if (d <= tau) {
+        const int pos = atomicAdd(&cnt[ql], 1);
+        if (pos < KNN_CAP)
+          cand[ql * KNN_CAP + pos] = make_int2(__float_as_int(d), base + t);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 3. rank the candidates
+  const int c = cnt[ql];
+  const bool overflow = active && c > KNN_CAP;
+  int* ob = out + ((size_t)b * nq + i) * (KK - drop);
+  if (active && !overflow) {
+    const int2* cq = cand + ql * KNN_CAP;
+    for (int j = lane; j < c; j += G) {
+      const float dj = __int_as_float(cq[j].x);
+      const int ij = cq[j].y;
+      int rank = 0;
+      for (int l = 0; l < c; ++l)
+        rank += lex_less(__int_as_float(cq[l].x), cq[l].y, dj, ij);
+      if (rank < KK && rank >= drop) ob[rank - drop] = ij;
+    }
+    // fewer than KK finite distances (non-finite input): index 0
+    for (int r = c + lane; r < KK; r += G)
+      if (r >= drop) ob[r - drop] = 0;
+  }
+  if (!__syncthreads_or(overflow)) return;
+
+  // ties overflowed a list: a sorted top-KK per lane, then a merge of the
+  // group's G lists (every lane of the warp takes part in the shuffles)
   float bd[KK];
   int bi[KK];
 #pragma unroll
   for (int j = 0; j < KK; ++j) {
     bd[j] = INFINITY;
-    bi[j] = 0;
+    bi[j] = INT_MAX;
   }
-
-  for (int base = 0; base < nk; base += KNN_TILE) {
-    const int cnt = min(KNN_TILE, nk - base);
-    __syncthreads();  // the previous tile is no longer read
-    for (int t = threadIdx.x; t < cnt; t += blockDim.x) {
-      const float x = kb[(size_t)(base + t) * 3 + 0];
-      const float y = kb[(size_t)(base + t) * 3 + 1];
-      const float z = kb[(size_t)(base + t) * 3 + 2];
-      tile[t] = make_float4(x, y, z, dot3_rn(x, y, z, x, y, z));
+  for (int base = 0; base < nk; base += cap) {
+    const int n = resident ? cap : stage(base);
+    if (!overflow) continue;
+    for (int t = lane; t < n; t += G) {
+      const float d = knn_dist(qx, qy, qz, q2, tile[t]);
+      if (d <= tau) insert_sorted(bd, bi, d, base + t);
     }
-    __syncthreads();
-    if (!active) continue;
-    for (int t = 0; t < cnt; ++t) {
-      const float4 kv = tile[t];
-      const float inner = dot3_rn(qx, qy, qz, kv.x, kv.y, kv.z);
-      const float d = __fsub_rn(__fadd_rn(q2, kv.w), __fmul_rn(2.f, inner));
-      if (d < bd[KK - 1]) {
-        // insertion from the back; strict '>' keeps equal distances in
-        // key order, i.e. ties go to the lower index
-        const int idx = base + t;
-        bool placed = false;
+  }
 #pragma unroll
-        for (int j = KK - 1; j >= 0; --j) {
-          const bool shift = (j > 0) ? (bd[j > 0 ? j - 1 : 0] > d) : false;
-          if (!placed) {
-            if (shift) {
-              bd[j] = bd[j > 0 ? j - 1 : 0];
-              bi[j] = bi[j > 0 ? j - 1 : 0];
-            } else {
-              bd[j] = d;
-              bi[j] = idx;
-              placed = true;
-            }
-          }
-        }
+  for (int r = 0; r < KK; ++r) {
+    float d = bd[0];
+    int id = bi[0];
+    for (int off = G >> 1; off > 0; off >>= 1) {
+      const float od = __shfl_xor_sync(FULL, d, off);
+      const int oi = __shfl_xor_sync(FULL, id, off);
+      if (lex_less(od, oi, d, id)) {
+        d = od;
+        id = oi;
       }
     }
-  }
-  if (!active) return;
-  const int k_out = KK - drop;
-  int* ob = out + ((size_t)b * nq + i) * k_out;
+    if (bi[0] == id) {  // this lane held the minimum: pop it
 #pragma unroll
-  for (int j = 0; j < KK; ++j) {
-    if (j >= drop) ob[j - drop] = bi[j];
+      for (int j = 0; j + 1 < KK; ++j) {
+        bd[j] = bd[j + 1];
+        bi[j] = bi[j + 1];
+      }
+      bd[KK - 1] = INFINITY;
+      bi[KK - 1] = INT_MAX;
+    }
+    if (overflow && lane == 0 && r >= drop) ob[r - drop] = id;
   }
 }
 
-#define KNN_CASE(KK)                                                       \
-  case KK:                                                                 \
-    knn_kernel<KK><<<grid, KNN_THREADS, 0, stream>>>(queries, keys, out,   \
-                                                     nq, nk, drop);        \
+#define KNN_CASE(KK)                                                        \
+  case KK:                                                                  \
+    knn_kernel<KK><<<grid, KNN_THREADS, smem, stream>>>(queries, keys, out, \
+                                                        nq, nk, drop, G);   \
     break;
 
 extern "C" int pose_knn(const float* queries, const float* keys, int* out,
@@ -104,7 +249,12 @@ extern "C" int pose_knn(const float* queries, const float* keys, int* out,
   if (kk < 1 || kk > 17 || drop < 0 || drop >= kk || kk > nk || nq < 1 ||
       batch < 1)
     return POSE_UNSUPPORTED;
-  dim3 grid((nq + KNN_THREADS - 1) / KNN_THREADS, batch);
+  int G = 8;
+  while (G < 32 && (long long)batch * nq * G < KNN_FILL) G *= 2;
+  const int qb = KNN_THREADS / G;
+  dim3 grid((nq + qb - 1) / qb, batch);
+  const size_t smem = sizeof(float4) * (size_t)(nk < KNN_TILE ? nk : KNN_TILE) +
+                      sizeof(int) * KNN_QMAX + sizeof(int2) * qb * KNN_CAP;
   switch (kk) {
     KNN_CASE(1) KNN_CASE(2) KNN_CASE(3) KNN_CASE(4) KNN_CASE(5) KNN_CASE(6)
     KNN_CASE(7) KNN_CASE(8) KNN_CASE(9) KNN_CASE(10) KNN_CASE(11)

@@ -20,6 +20,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -123,6 +125,19 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def launch(fn, dev: torch.device, *args) -> int:
+    """fn(*args, stream): a kernel entry called on `dev`'s current stream,
+    with `dev` the current device for the call; returns its code. The raw
+    stream query builds no Python object, unlike torch.cuda.device() and
+    current_stream(), whose cost is a large share of a small kernel's
+    call, so the context is entered only when `dev` is not current."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def check(rc: int, name: str) -> None:

@@ -6,8 +6,14 @@ versions.
                  pose_estimation_tpu/ops/pallas_gcn.py:_surface_multi_kernel
   linear_multi   out_si = sum_s max_k relu(nd_si . dirs_si)
                                      * (X_si[idx] @ W_si + b_si)
-                 kernels csrc/gcn.cu:table_kernel + linear_agg_kernel,
-                 replacing pallas_gcn.py:_linear_multi_kernel
+                 replacing pallas_gcn.py:_linear_multi_kernel with two
+                 passes: the support table X @ W + b once per point
+                 (csrc/gcn.cu:table_wgmma_kernel on the tensor cores in
+                 bf16, bound by writing the table; table_kernel on the
+                 CUDA cores in fp32), then linear_agg_kernel, bound by
+                 gathering K table rows per point from L2 and by the fp32
+                 issue rate: each thread reads 16 bytes of a row per slot
+                 with several slots' loads in flight
   aggregate      out = sum_s max_k relu(nd . dirs) * F[idx], one stream,
                  D = 3 or 9, the support table F [B, M, S*O] given
                  kernel csrc/gcn.cu:agg_kernel, replacing
@@ -31,7 +37,8 @@ Numerics (the plain versions define them; the kernels follow them):
            XLA path computes (_fwd_xla runs theta-only aggregates in bf16).
   linear   inputs in the dtype of xs (fp32 or bf16); the support table
            T = X @ W + b accumulates in fp32 and is stored in that dtype;
-           theta, the product, the max and the sum are fp32.
+           theta, the product, the max and the sum are fp32 (the kernel
+           contracts theta into FMAs: ~1 fp32 ulp).
   aggregate  every op in the table's dtype, as the XLA gcn_aggregate: in
            bf16 each product and sum of theta, the product with F and
            each support sum is rounded to bf16.
@@ -199,12 +206,9 @@ def _surface_launch(nds, dirs_list, support_num: int) -> torch.Tensor:
     nd = torch.stack(nds, dim=3).to(_BF16).contiguous()       # [B,N,K,St,3]
     dirs = torch.stack(dirs_list).to(_BF16).contiguous()      # [St,3,S*O]
     out = torch.empty((b, n, streams * o), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.pose_gcn_surface(nd.data_ptr(), dirs.data_ptr(),
-                                  out.data_ptr(), b * n, k, streams,
-                                  support_num, o,
-                                  torch.cuda.current_stream().cuda_stream)
+    rc = _build.launch(_build.library().pose_gcn_surface, dev,
+                       nd.data_ptr(), dirs.data_ptr(), out.data_ptr(), b * n,
+                       k, streams, support_num, o)
     _build.check(rc, "pose_gcn_surface")
     surface_multi.launches += 1
     return out
@@ -302,11 +306,32 @@ def linear_multi(nds, dirs_list, xs, ws, bs, idx, support_num: int):
             or so % support_num):
         raise ValueError("linear_multi: ws [Cin, S*O], bs [S*O], dirs "
                          "[3, S*O] expected")
+    # pass B: one thread per 16 bytes of a table row, at most 512 a block
+    if ((so // support_num) % 8 or not 1 <= support_num <= 8
+            or so * xs[0].element_size() > 512 * 16):
+        raise ValueError("linear_multi: the kernel takes O a multiple of 8, "
+                         "S <= 8 and S*O <= 4096 (bf16) or 2048 (fp32)")
     out = _LinearMulti.apply(support_num, streams, *ts)
     return _split(out, streams)
 
 
 linear_multi.launches = 0
+
+
+# The bf16 table pass (csrc/gcn.cu:table_wgmma_kernel) computes 128 table
+# columns per block in k chunks of 64, and reads W transposed and padded to
+# those multiples (gcn.cu WG_BN, WG_BK).
+_WG_N, _WG_K = 128, 64
+
+
+def _wgmma_weights(ws, dt):
+    """ws list of [Cin, S*O] -> [streams, S*O, Cin] in dt, k-contiguous
+    (wgmma's k-major B operand), zero-padded to the kernel's tiles."""
+    cin, so = ws[0].shape
+    shape = (len(ws), -(-so // _WG_N) * _WG_N, -(-cin // _WG_K) * _WG_K)
+    w = torch.zeros(shape, dtype=dt, device=ws[0].device)
+    w[:, :so, :cin] = torch.stack(ws).transpose(1, 2)
+    return w
 
 
 def _linear_launch(nds, dirs_list, xs, ws, bs, idx, support_num: int):
@@ -319,19 +344,19 @@ def _linear_launch(nds, dirs_list, xs, ws, bs, idx, support_num: int):
     cin = xs[0].shape[2]
     o = so // support_num
     nd = torch.stack(nds, dim=3).to(dt).contiguous()          # [B,N,K,St,3]
-    dirs = torch.stack(dirs_list).to(dt).contiguous()         # [St,3,S*O]
+    # [St,3,S*O], rounded to dt and handed over in fp32
+    dirs = torch.stack(dirs_list).to(dt).float().contiguous()
     x = torch.cat(xs, dim=-1).contiguous()                    # [B,M,St*Cin]
-    w = torch.stack(ws).to(dt).contiguous()                   # [St,Cin,S*O]
+    w = (_wgmma_weights(ws, dt) if dt == _BF16
+         else torch.stack(ws).to(dt).contiguous())            # [St,Cin,S*O]
     bias = torch.stack(bs).float().contiguous()               # [St,S*O]
     table = torch.empty((b, m, streams, so), dtype=dt, device=dev)
     out = torch.empty((b, n, streams * o), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        rc = lib.pose_gcn_linear(
-            idx.data_ptr(), nd.data_ptr(), dirs.data_ptr(), x.data_ptr(),
-            w.data_ptr(), bias.data_ptr(), table.data_ptr(), out.data_ptr(),
-            b, n, m, k, streams, cin, support_num, o,
-            1 if dt == _BF16 else 0, torch.cuda.current_stream().cuda_stream)
+    rc = _build.launch(
+        _build.library().pose_gcn_linear, dev, idx.data_ptr(),
+        nd.data_ptr(), dirs.data_ptr(), x.data_ptr(), w.data_ptr(),
+        bias.data_ptr(), table.data_ptr(), out.data_ptr(), b, n, m, k,
+        streams, cin, support_num, o, 1 if dt == _BF16 else 0)
     _build.check(rc, "pose_gcn_linear")
     linear_multi.launches += 1
     return out
@@ -346,12 +371,10 @@ def _aggregate_launch(nd, dirs, feats, idx, support_num: int):
     dirs = dirs.to(dt).contiguous()
     feats = feats.contiguous()
     out = torch.empty((b, n, o), dtype=torch.float32, device=feats.device)
-    lib = _build.library()
-    with torch.cuda.device(feats.device):
-        rc = lib.pose_gcn_aggregate(
-            idx.data_ptr(), nd.data_ptr(), dirs.data_ptr(), feats.data_ptr(),
-            out.data_ptr(), b, n, m, k, d, support_num, o,
-            1 if dt == _BF16 else 0, torch.cuda.current_stream().cuda_stream)
+    rc = _build.launch(
+        _build.library().pose_gcn_aggregate, feats.device, idx.data_ptr(),
+        nd.data_ptr(), dirs.data_ptr(), feats.data_ptr(), out.data_ptr(), b,
+        n, m, k, d, support_num, o, 1 if dt == _BF16 else 0)
     _build.check(rc, "pose_gcn_aggregate")
     aggregate.launches += 1
     return out

@@ -11,7 +11,12 @@ each a hand-written CUDA kernel beside its plain version.
            loss) puts it in a torch.autograd.Function; `nearest_index`
            (FusionNetLite's up-sampling maps) takes the index.
 What bounds each kernel on the card, and its design, are described at the
-top of its source.
+top of its source. In short: the searches are small, and a sorted top-kk
+per thread is bound by its insertions, so knn gives each query a group of
+8-32 lanes (chosen to fill the card): a first scan bounds the kk-th
+distance, a second keeps the few keys within the bound, and each keeps
+the rank it has among them in (distance, index) order, ties to the lower
+index; nearest is one thread per target.
 
 `knn` and `nearest` are the wrappers: the plain PyTorch version for CPU
 tensors, the kernel for CUDA tensors (or an exception; there is no
@@ -70,12 +75,9 @@ def knn(queries: torch.Tensor, keys: torch.Tensor, k: int,
         raise ValueError("knn: batch sizes differ")
     kk = k + 1 if exclude_self else k
     out = torch.empty((b, nq, k), dtype=torch.int32, device=queries.device)
-    lib = _build.library()
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pose_knn(queries.data_ptr(), keys.data_ptr(),
-                          out.data_ptr(), b, nq, nk, kk,
-                          1 if exclude_self else 0, stream)
+    rc = _build.launch(_build.library().pose_knn, queries.device,
+                       queries.data_ptr(), keys.data_ptr(), out.data_ptr(),
+                       b, nq, nk, kk, 1 if exclude_self else 0)
     _build.check(rc, "pose_knn")
     knn.launches += 1
     return out
@@ -118,12 +120,9 @@ def nearest(target: torch.Tensor, source: torch.Tensor, eps: float = 1e-8):
     b, n, _ = target.shape
     dist = torch.empty((b, n), dtype=torch.float32, device=target.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=target.device)
-    lib = _build.library()
-    with torch.cuda.device(target.device):
-        rc = lib.pose_min_dists(target.data_ptr(), source.data_ptr(),
-                                dist.data_ptr(), idx.data_ptr(), b, n,
-                                source.shape[1], eps * eps,
-                                torch.cuda.current_stream().cuda_stream)
+    rc = _build.launch(_build.library().pose_min_dists, target.device,
+                       target.data_ptr(), source.data_ptr(), dist.data_ptr(),
+                       idx.data_ptr(), b, n, source.shape[1], eps * eps)
     _build.check(rc, "pose_min_dists")
     nearest.launches += 1
     return dist, idx

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from pose_estimation_tpu.configs import schema
+from pose_estimation_tpu_torch.configs import schema
 from pose_estimation_tpu_torch.core.mathsafe import safe_normalize
 from pose_estimation_tpu_torch.models.krrn import KRRN
 from pose_estimation_tpu_torch.ops import _build, gcn, pointops
@@ -58,10 +58,18 @@ def _gcn_inputs(dev, n, m, k, s=3, o=16, cin=12, streams=3, seed=0):
     return nds, dirs, xs, ws, bs, idx, s
 
 
-@pytest.mark.parametrize("n,m,o", [(300, 300, 16), (37, 90, 40),
-                                   (64, 64, 128)])
-def test_linear_multi_matches_plain(dev, n, m, o):
-    nds, dirs, xs, ws, bs, idx, s = _gcn_inputs(dev, n, m, 6, o=o)
+@pytest.mark.parametrize("n,m,o,s,cin", [
+    (300, 300, 16, 3, 12), (37, 90, 40, 3, 12), (64, 64, 128, 3, 12),
+    (90, 37, 40, 3, 40), (50, 300, 128, 7, 40), (300, 90, 128, 7, 128),
+    (64, 64, 256, 7, 256), (50, 40, 16, 3, 520)])
+def test_linear_multi_matches_plain(dev, n, m, o, s, cin):
+    """Shapes that break kernel 1's tiles: B*M rows not a multiple of the
+    table pass's 128-row tile, Cin not a multiple of 16 (or of 8: the
+    unvectorised load), S*O not a multiple of its 128-column tile, the
+    full FusionNet's O=256 from Cin 256, and a Cin past the tensor-core
+    pass's 512 (the CUDA-core table pass in bf16)."""
+    nds, dirs, xs, ws, bs, idx, s = _gcn_inputs(dev, n, m, 6, s=s, o=o,
+                                                cin=cin)
     for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         x = [t.to(dt) for t in xs]
         got = gcn.linear_multi(nds, dirs, x, ws, bs, idx, s)
@@ -86,8 +94,17 @@ def test_surface_multi_matches_plain(dev, n, s):
 @pytest.mark.parametrize("nq,nk,k,ex", [(300, 300, 10, True),
                                         (75, 300, 4, True),
                                         (40, 1500, 16, False),
-                                        (2000, 2000, 3, True)])
+                                        (2000, 2000, 3, True),
+                                        (5, 70, 1, False),
+                                        (3, 40, 16, True),
+                                        (130, 1030, 17, False),
+                                        (3000, 3000, 10, True),
+                                        (5000, 5000, 4, True)])
 def test_knn_matches_plain(dev, nq, nk, k, ex):
+    """Indices equal to the plain version's: ragged query and key counts,
+    fewer queries than a query's lane group, kk = 1 and 17, more keys than
+    one shared-memory tile, and query counts that give 32, 16 and 8 lanes
+    per query at batch 2."""
     g = torch.Generator(device=dev).manual_seed(1)
     keys = torch.randn((2, nk, 3), generator=g, device=dev)
     q = (keys[:, ::nk // nq][:, :nq].contiguous() if ex
@@ -95,7 +112,21 @@ def test_knn_matches_plain(dev, nq, nk, k, ex):
     got = pointops.knn(q, keys, k, ex)
     ref = pointops.knn_plain(q, keys, k, ex)
     assert got.shape == (2, nq, k) and got.dtype == torch.int32
-    assert (got == ref).float().mean().item() > 0.999
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("n", [600, 3000, 5000])
+def test_knn_ties_go_to_the_lower_index(dev, n):
+    """A cloud on a coarse grid with every point twice: many exactly equal
+    distances, which the lanes' merge must hand to the lower index, as
+    the plain version's stable sort does."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    keys = torch.randint(0, 4, (2, n, 3), generator=g, device=dev) * 0.25
+    keys[:, n // 2:] = keys[:, :n // 2]
+    for q, ex in ((keys, True), (keys[:, ::3].contiguous(), False)):
+        for k in (1, 10, 16):
+            got = pointops.knn(q, keys, k, ex)
+            assert torch.equal(got, pointops.knn_plain(q, keys, k, ex))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -113,6 +144,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         gcn.linear_multi(nds, dirs, xs, ws, bs, idx.long(), s)
     with pytest.raises(TypeError):
         gcn.linear_multi(nds, dirs, [x.half() for x in xs], ws, bs, idx, s)
+    nds, dirs, xs, ws, bs, idx, s = _gcn_inputs(dev, 16, 16, 4, o=12)
+    with pytest.raises(ValueError):                        # O % 8
+        gcn.linear_multi(nds, dirs, xs, ws, bs, idx, s)
 
 
 def test_tiny_krrn_launch_counts_and_plain_cpu_parity(dev):
