@@ -11,34 +11,37 @@ Phases (each raises on failure, the script then exits non-zero):
      must have some;
   3. each kernel against its plain PyTorch version on the card, at the
      serving path's shapes (bs=32) in fp32 and bf16, kernel 1 also at the
-     full FusionNet's level-1 shapes, the nearest-source kernel at the
-     train step's (bs=8) and at 8192 x 8192 points with its backward, the
-     wide-table aggregate at the profiler's shape and at the full
-     FusionNet's fm_4 (S=2) with its backward: max |error|, the median
-     times of both (CUDA events), the least time the card could take
-     (bound) and, where one PyTorch call computes the same function, its
-     time; KNN's indices must equal the plain version's; then the device
-     time of each CUDA kernel of kernels 1 and 3 at these shapes
-     (torch.profiler) beside the wrappers' event times;
+     full FusionNet's level-1 shapes, the surface aggregate bit for bit,
+     the nearest-source kernel at the train step's (bs=8: the pose loss,
+     and the two up-sampling maps in one call), at the serving path's
+     merged call (bs=32) and at 8192 x 8192 points with its backward,
+     distances and indices bit for bit, the wide-table aggregate at the
+     profiler's shape and at the full FusionNet's fm_4 (S=2) with its
+     backward: max |error|, the median times of both (CUDA events), the
+     least time the card could take (bound) and, where one PyTorch call
+     computes the same function, its time; KNN's indices must equal the
+     plain version's; then the device time of each CUDA kernel of kernels
+     1-4 at these shapes (torch.profiler) beside the wrappers' event
+     times;
   4. the pose stage fed ground-truth normalised coordinates of a synthetic
      batch: mean rotation error < 1 deg and ADD@0.1d >= 0.9;
   5. the shipped schema.Config() KRRN (full HRNet, 13 classes, 1024
      points, bf16 activations, seeded random weights) served through
      serve.build_infer_step on a synthetic bs=32 batch: finite outputs,
      launches per forward exactly 2 (linear aggregate), 1 (surface
-     aggregate), 8 (KNN), 2 (nearest source: the up-sampling maps), 0
-     (wide-table aggregate), the kernel path against the plain path on the
-     same weights and batch, stage times and frames/s;
+     aggregate), 8 (KNN), 1 (nearest source: the two up-sampling maps in
+     one call), 0 (wide-table aggregate), the kernel path against the
+     plain path on the same weights and batch, stage times and frames/s;
   6. the serving CLI (tools/infer.py) on 64 synthetic frames at batch 32,
      which must write 64 JSONL records;
   7. training at full width (schema.Config(), bf16 activations, bs=8,
      seeded random weights, synthetic frames): one step's loss and
      gradient norm with the kernels against the plain versions from the
      same state and batch; launches per train step exactly 2 (linear),
-     1 (surface), 8 (KNN), 3 (nearest source: the pose loss and the two
-     up-sampling maps); 30 steps on one fixed batch at lr 3e-4 without
-     warmup: finite losses, no skipped step, the mean of the last 5 losses
-     below the first; the median step time, its forward / backward /
+     1 (surface), 8 (KNN), 2 (nearest source: the pose loss, and the two
+     up-sampling maps in one call); 30 steps on one fixed batch at lr 3e-4
+     without warmup: finite losses, no skipped step, the mean of the last
+     5 losses below the first; the median step time, its forward / backward /
      optimizer split, samples/s, the peak device memory, the full step
      with the plain versions, and the device's busy time over 3 profiled
      steps;
@@ -46,10 +49,10 @@ Phases (each raises on failure, the script then exits non-zero):
      that starts the pose branch at epoch 0: JSONL train records and an
      eval summary with add_dis;
   9. phase 5 with the full FusionNet (fusion_variant="full", S=7):
-     launches per forward exactly 3 (linear), 1, 8, 2, 0;
+     launches per forward exactly 3 (linear), 1, 8, 1, 0;
  10. the full-fusion model at S=2, full widths otherwise, where its first
-     fuse layer is wide: one serving forward (launches 3/1/8/2/1, against
-     the plain path) and one train step at bs=8 (launches 3/1/8/3/1; loss
+     fuse layer is wide: one serving forward (launches 3/1/8/1/1, against
+     the plain path) and one train step at bs=8 (launches 3/1/8/2/1; loss
      and gradient norm against the plain versions);
  11. tools/profile_eval in full: every component prints a time;
 and checks that nothing of JAX or of the JAX package was imported.
@@ -94,11 +97,11 @@ KERNELS = {
 
 # launches per serving forward / train step on each path
 LITE_SERVE = {"linear_multi": 2, "surface_multi": 1, "knn": 8,
-              "min_dists": 2, "aggregate": 0}
-LITE_TRAIN = dict(LITE_SERVE, min_dists=3)
+              "min_dists": 1, "aggregate": 0}
+LITE_TRAIN = dict(LITE_SERVE, min_dists=2)
 FULL_SERVE = dict(LITE_SERVE, linear_multi=3)
 FULL_S2_SERVE = dict(FULL_SERVE, aggregate=1)
-FULL_S2_TRAIN = dict(FULL_S2_SERVE, min_dists=3)
+FULL_S2_TRAIN = dict(FULL_S2_SERVE, min_dists=2)
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s; fp32 on the CUDA
 # cores and bf16 products on the tensor cores, operations/s
@@ -160,17 +163,17 @@ def plain_kernels():
     package itself has no such switch)."""
     from pose_estimation_tpu_torch.ops import gcn, pointops
     saved = (gcn.linear_multi, gcn.surface_multi, gcn.aggregate,
-             pointops.knn, pointops.nearest)
+             pointops.knn, pointops.nearest_multi)
     gcn.linear_multi = gcn.linear_multi_plain
     gcn.surface_multi = gcn.surface_multi_plain
     gcn.aggregate = gcn.aggregate_plain
     pointops.knn = pointops.knn_plain
-    pointops.nearest = pointops.nearest_plain
+    pointops.nearest_multi = pointops.nearest_multi_plain
     try:
         yield
     finally:
         (gcn.linear_multi, gcn.surface_multi, gcn.aggregate, pointops.knn,
-         pointops.nearest) = saved
+         pointops.nearest_multi) = saved
 
 
 def reset_counts():
@@ -179,7 +182,7 @@ def reset_counts():
     gcn.surface_multi.launches = 0
     gcn.aggregate.launches = 0
     pointops.knn.launches = 0
-    pointops.nearest.launches = 0
+    pointops.nearest_multi.launches = 0
 
 
 def read_counts():
@@ -187,7 +190,7 @@ def read_counts():
     return {"linear_multi": gcn.linear_multi.launches,
             "surface_multi": gcn.surface_multi.launches,
             "knn": pointops.knn.launches,
-            "min_dists": pointops.nearest.launches,
+            "min_dists": pointops.nearest_multi.launches,
             "aggregate": gcn.aggregate.launches}
 
 
@@ -261,39 +264,59 @@ def check_knn(dev, g):
 
 
 def check_min_dists(dev, g):
-    """The nearest-source kernel at a train step's shapes (B=8: the pose
-    loss's 1024 predicted points against 500 model points, and the two
-    up-sampling maps, 1024 points against 256 and 64) and at N=M=8192,
-    where the TPU wrapper would take its Pallas kernel: distances and
-    indices equal to the plain version's (the same operation order, so
-    bit for bit). The backward at the pose-loss shape against autograd
-    through the plain expression: 1e-3 * max(1, max|ref|) (the two forms
-    round the cancelling expanded distance differently)."""
+    """The nearest-source kernel at a train step's two calls (B=8: the pose
+    loss's 1024 predicted points against 500 model points; the two
+    up-sampling maps, 1024 points against 256 and 64, in one call), at the
+    serving path's merged call (B=32) and at N=M=8192, where the TPU
+    wrapper would take its Pallas kernel: distances and indices equal to
+    the plain version's (the same operation order, so bit for bit). The
+    backward at the pose-loss shape against autograd through the plain
+    expression: 1e-3 * max(1, max|ref|) (the two forms round the
+    cancelling expanded distance differently). The entry's times are the
+    train step's two calls; the serving call's go under "serving_maps"."""
     import torch
     from pose_estimation_tpu_torch.ops import pointops
-    b = TRAIN_BS
     worst, ms, plain_ms, lib_ms, n_bytes, n_ops = 0.0, 0.0, 0.0, 0.0, 0, 0
-    for n, m in ((1024, 500), (1024, 256), (1024, 64), (8192, 8192)):
+    serving = None
+    for label, b, n, sizes in (("train, pose loss", TRAIN_BS, 1024, (500,)),
+                               ("train, up-sampling maps", TRAIN_BS, 1024,
+                                (256, 64)),
+                               ("serving, up-sampling maps", BS, 1024,
+                                (256, 64)),
+                               ("8192^2", TRAIN_BS, 8192, (8192,))):
         t = _cloud(g, b, n, dev)
-        s = _cloud(g, b, m, dev)
-        d, i = pointops.nearest(t, s)
-        dp, ip = pointops.nearest_plain(t, s)
-        err = (d - dp).abs().max().item()
-        same = (i == ip).float().mean().item()
-        t_k = cuda_ms(lambda: pointops.nearest(t, s))
-        t_p = cuda_ms(lambda: pointops.nearest_plain(t, s), reps=5)
-        log(f"  min_dists B={b} {n}x{m}: max |err| {err:.3e}, index "
-            f"agreement {same:.6f}, kernel {t_k:.4f} ms, plain {t_p:.4f} ms")
+        srcs = [_cloud(g, b, m, dev) for m in sizes]
+        got = pointops.nearest_multi(t, srcs)
+        ref = pointops.nearest_multi_plain(t, srcs)
+        err = max((d - dp).abs().max().item()
+                  for (d, _), (dp, _) in zip(got, ref))
+        same = min((i == ip).float().mean().item()
+                   for (_, i), (_, ip) in zip(got, ref))
+        t_k = cuda_ms(lambda: pointops.nearest_multi(t, srcs))
+        t_p = cuda_ms(lambda: pointops.nearest_multi_plain(t, srcs), reps=5)
+        # per pair: dot (5), the norms' sum and -2 dot (3), one compare
+        c_bytes = nbytes(t, *srcs) + len(srcs) * b * n * 8
+        c_ops = b * n * sum(sizes) * 9
+        b_ms, b_by = bound(c_bytes, {"fp32": c_ops})
+        log(f"  min_dists {label}, B={b} {n}x{sizes}: max |err| {err:.3e}, "
+            f"index agreement {same:.6f}, kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         if not (err == 0.0 and same == 1.0):
-            raise AssertionError(f"min_dists {n}x{m}: {err}, {same}")
-        if n == 1024:
-            t_l = cuda_ms(lambda: torch.cdist(t, s).min(dim=-1))
-            log(f"    cdist + min: {t_l:.4f} ms")
-            ms += t_k
-            plain_ms += t_p
-            lib_ms += t_l
-            n_bytes += nbytes(t, s, d, i)
-            n_ops += b * n * m * 9
+            raise AssertionError(f"min_dists {label}: {err}, {same}")
+        if n == 8192:
+            continue
+        t_l = cuda_ms(lambda: [torch.cdist(t, s).min(dim=-1) for s in srcs])
+        log(f"    cdist + min, one per cloud: {t_l:.4f} ms")
+        if label.startswith("serving"):
+            serving = {"ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
+                       "bound_by": b_by, "library_ms": t_l}
+            continue
+        ms += t_k
+        plain_ms += t_p
+        lib_ms += t_l
+        n_bytes += c_bytes
+        n_ops += c_ops
+    b = TRAIN_BS
     t = _cloud(g, b, 1024, dev).requires_grad_()
     s = _cloud(g, b, 500, dev).requires_grad_()
     w = torch.rand((b, 1024), generator=g, device=dev)
@@ -313,6 +336,7 @@ def check_min_dists(dev, g):
     b_ms, b_by = bound(n_bytes, {"fp32": n_ops})
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "serving_maps": serving,
             "tolerance": "forward exact; backward 1e-3 * max(1, max|ref|)"}
 
 
@@ -336,10 +360,10 @@ def _gcn_inputs(g, dev, n, m, k, streams=3, cin=128, s=7, o=128):
 
 
 def check_surface(dev, g):
-    """Level 0: B=32, N=1024, K=10, 3 streams, S=7, O=128. Outputs are
-    rounded to bf16 by definition, so the tolerance is one bf16 ulp of the
-    largest output: a last-bit difference in an fp32 dot may flip one
-    rounding."""
+    """Level 0: B=32, N=1024, K=10, 3 streams, S=7, O=128, nd and dirs in
+    fp32 and in bf16: bit for bit (the kernel keeps the plain version's
+    dot order without FMA, and takes relu and the bf16 rounding after the
+    max over k, which gives the same bits)."""
     import torch
     from pose_estimation_tpu_torch.ops import gcn
     nds, dirs, _, _, _, _, s = _gcn_inputs(g, dev, 1024, 1024, 10)
@@ -350,11 +374,11 @@ def check_surface(dev, g):
         got = torch.cat(gcn.surface_multi(a, d, s), -1)
         ref = torch.cat(gcn.surface_multi_plain(a, d, s), -1)
         err = (got - ref).abs().max().item()
-        tol = ref.abs().max().item() * 2.0 ** -8
-        log(f"  surface_multi {dt}: max |err| {err:.3e} (tol {tol:.3e}), "
-            f"max |ref| {ref.abs().max().item():.3f}")
-        if not err <= tol:
-            raise AssertionError(f"surface_multi {dt}: {err} > {tol}")
+        equal = (got == ref).float().mean().item()
+        log(f"  surface_multi {dt}: max |err| {err:.3e}, bit-equal share "
+            f"{equal:.6f}, max |ref| {ref.abs().max().item():.3f}")
+        if not torch.equal(got, ref):
+            raise AssertionError(f"surface_multi {dt}: {err}, {equal}")
         worst = max(worst, err)
     a = [t.to(torch.bfloat16) for t in nds]
     d = [t.to(torch.bfloat16) for t in dirs]
@@ -370,7 +394,7 @@ def check_surface(dev, g):
         f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "tolerance": "one bf16 ulp of max|ref|"}
+            "tolerance": "bit for bit"}
 
 
 def check_linear(dev, g):
@@ -897,20 +921,26 @@ def hgmma_counts():
 
 
 OWN_KERNELS = ("table_kernel", "table_wgmma_kernel", "linear_agg_kernel",
-               "knn_kernel")
+               "knn_kernel", "surface_kernel", "min_dists_kernel")
 
 
 def kernel_split(dev, reps=10):
-    """Device time of each CUDA kernel of kernels 1 and 3 at phase 3's
-    shapes (bf16 for kernel 1), from torch.profiler's CUDA activity, beside
-    the wrapper's CUDA-event time (which adds the wrapper's host cost where
-    the host is slower than the card). Kernels that are not the port's own
-    are the wrapper's PyTorch casts and copies ("other"). Returns
-    {case: {"wrapper_ms", "calls", kernel name: ms per call}}."""
+    """Device time of each CUDA kernel of kernels 1-4 at phase 3's shapes
+    (bf16 for kernel 1; kernel 2 with bf16 and with fp32 nd and dirs),
+    from torch.profiler's CUDA activity, beside the wrapper's CUDA-event
+    time (which adds the wrapper's host cost where the host is slower than
+    the card). Kernels that are not the port's own are the wrapper's
+    PyTorch casts and copies ("other"). Kernel 4 at the serving path's two
+    up-sampling maps (B=32, 1024 targets against 256 and 64 sources), one
+    at a time and as a forward makes them (one merged call where the
+    package has nearest_multi, else two calls), and at B=8, 8192 x 8192.
+    Returns {case: {"wrapper_ms", "calls", kernel name: ms per call}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from pose_estimation_tpu_torch.ops import gcn, pointops
     g = torch.Generator(device=dev).manual_seed(5)
+    # (label, calls per forward (0: not a forward's shape), fn,
+    #  ((kernel names, launches per fn), ...))
     cases = []
     for label, n, cin, o in (("level 0", 1024, 128, 128),
                              ("level 1", 256, 128, 128),
@@ -922,14 +952,39 @@ def kernel_split(dev, reps=10):
         cases.append((f"linear_multi {label}", 1,
                       lambda a=(nds, dirs, x, ws, bs, idx, s):
                       gcn.linear_multi(*a),
-                      (("table_wgmma_kernel", "table_kernel"),
-                       ("linear_agg_kernel",))))
+                      ((("table_wgmma_kernel", "table_kernel"), 1),
+                       (("linear_agg_kernel",), 1))))
+    nds, dirs, _, _, _, _, s = _gcn_inputs(g, dev, 1024, 1024, 10)
+    for dt in (torch.bfloat16, torch.float32):
+        a = [t.to(dt) for t in nds]
+        d = [t.to(dt) for t in dirs]
+        cases.append((f"surface_multi level 0, {str(dt)[6:]} nd and dirs",
+                      1, lambda a=a, d=d: gcn.surface_multi(a, d, s),
+                      ((("surface_kernel",), 1),)))
     for kind, nq, nk, k, calls in KNN_CASES:
         keys = _cloud(g, BS, nk, dev)
         q = keys if kind == "self" else keys[:, ::nk // nq].contiguous()
         cases.append((f"knn {kind} {nq}x{nk} k={k}", calls,
                       lambda a=(q, keys, k): pointops.knn(*a, True),
-                      (("knn_kernel",),)))
+                      ((("knn_kernel",), 1),)))
+    md = (("min_dists_kernel",), 1)
+    t = _cloud(g, BS, 1024, dev)
+    maps = [_cloud(g, BS, m, dev) for m in (256, 64)]
+    for src in maps:
+        cases.append((f"min_dists B={BS} 1024x{src.shape[1]}", 0,
+                      lambda a=(t, src): pointops.nearest(*a), (md,)))
+    if hasattr(pointops, "nearest_multi"):
+        cases.append((f"min_dists B={BS} 1024x(256, 64), the up-sampling "
+                      "maps in one call", 1,
+                      lambda: pointops.nearest_multi(t, maps), (md,)))
+    else:
+        cases.append((f"min_dists B={BS} 1024x(256, 64), the up-sampling "
+                      "maps in two calls", 1,
+                      lambda: [pointops.nearest(t, m) for m in maps],
+                      ((md[0], 2),)))
+    big = [_cloud(g, TRAIN_BS, 8192, dev) for _ in range(2)]
+    cases.append((f"min_dists B={TRAIN_BS} 8192x8192", 0,
+                  lambda: pointops.nearest(*big), (md,)))
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
     res = {}
@@ -937,7 +992,7 @@ def kernel_split(dev, reps=10):
         wrapper = cuda_ms(fn)
         # a window now and then comes back with events missing: take one in
         # which each kernel of the call (`own`: groups of names, the earlier
-        # commits' included) shows up once per call
+        # commits' included) shows up as often as the call launches it
         for _ in range(5):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -954,15 +1009,16 @@ def kernel_split(dev, reps=10):
                         else "other")
                 row[name] = row.get(name, 0.0) + dev_us(e) / 1e3 / reps
                 seen[name] = seen.get(name, 0) + e.count
-            if all(sum(seen.get(k, 0) for k in group) == reps
-                   for group in own):
+            if all(sum(seen.get(k, 0) for k in group) == reps * per_call
+                   for group, per_call in own):
                 break
         else:
             raise AssertionError(f"split {label}: events missing, {seen}")
         device = sum(v for k, v in row.items() if k in OWN_KERNELS)
-        log(f"  split {label} (x{calls} per forward): wrapper {wrapper:.4f} "
-            f"ms; device " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
-                                       if k not in ("wrapper_ms", "calls"))
+        per = f" (x{calls} per forward)" if calls else ""
+        log(f"  split {label}{per}: wrapper {wrapper:.4f} ms; device "
+            + ", ".join(f"{k} {v:.4f}" for k, v in row.items()
+                        if k not in ("wrapper_ms", "calls"))
             + f" ms; wrapper - own kernels {wrapper - device:.4f} ms")
         res[label] = row
     knn = [r for k, r in res.items() if k.startswith("knn")]
@@ -971,6 +1027,10 @@ def kernel_split(dev, reps=10):
     log(f"  split: the 8 KNN searches of a forward, device {dev_ms:.4f} ms, "
         f"wrapper {wrap_ms:.4f} ms, host cost {(wrap_ms - dev_ms) / 8:.4f} "
         f"ms per call")
+    maps = next(r for k, r in res.items() if "up-sampling" in k)
+    log(f"  split: the up-sampling maps of a forward, device "
+        f"{maps.get('min_dists_kernel', 0.0):.4f} ms, wrapper "
+        f"{maps['wrapper_ms']:.4f} ms")
     return res
 
 
@@ -1138,7 +1198,9 @@ def main(argv=None) -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+                        "library_ms": r["library_ms"],
+                        **({"serving_maps": r["serving_maps"]}
+                           if "serving_maps" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -37,6 +37,12 @@ def nearest_index(target: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
     return _kops.nearest_index(target, source)
 
 
+def nearest_index_multi(target: torch.Tensor, sources) -> list:
+    """nearest_index against each cloud of `sources` (each [B, n_c, 3]),
+    one kernel launch for all of them: a list of [B, n1] int32."""
+    return _kops.nearest_index_multi(target, sources)
+
+
 def min_dists(target: torch.Tensor, source: torch.Tensor,
               eps: float = 1e-8) -> torch.Tensor:
     """Distance to the nearest source point [B, n1], sqrt clamped at

@@ -31,51 +31,167 @@
 
 // ---------------------------------------------------------------------------
 // Surface aggregate (kernel 2).
-// One thread per output (point, stream, o); it loops over k and keeps the S
-// running maxima in registers. The arithmetic follows the XLA formulation
-// the JAX package runs off the TPU (_surface_multi_xla -> _fwd_xla, which
-// computes in bf16): theta is rounded to bf16 after an fp32 dot, the sum
-// over supports is taken in fp32 and rounded to bf16. Bound on the card by
-// the fp32 issue rate (K*S*~6 flops per output) and the fp32 output write;
-// nd is read once per point and broadcast across the o threads of a warp.
+// out[p, st*O + o] =
+//     bf16(sum_s relu(bf16(max_k <nd[p, k, st], dirs[st, :, s*O + o]>)))
+// The arithmetic is the XLA formulation the JAX package runs off the TPU
+// (_surface_multi_xla -> _fwd_xla, which computes in bf16): nd and dirs
+// rounded to bf16, theta = bf16(fp32 dot), max over k, the sum over
+// supports in fp32 in order s = 0..S-1, rounded to bf16. Rounding to
+// nearest is monotone and relu commutes with it (bf16(x) <= 0 for x <= 0),
+// so max_k relu(bf16(x_k)) = bf16(relu(max_k x_k)) bit for bit: the k-loop
+// keeps the unrounded maxima and rounds once per (point, s, o). The max
+// propagates NaN, as torch.maximum does.
+//
+// Bound on the card by the fp32 issue rate: per (point, slot, stream,
+// support, channel) a 3-term dot (3 slots, below) and a max, 3.5 G slots
+// at level 0. A block owns one stream and a tile of
+// SURF_PTS points; it stages the tile's nd (one coalesced read of each
+// stream's own tensor, fp32 or bf16, rounded to bf16 here) in shared memory
+// as float4s, and each thread owns C consecutive channels of all S
+// supports: its 3*S*C direction weights sit in registers for the whole
+// tile, every nd vector read from shared memory (a broadcast across the
+// warp) feeds 6*S*C slots, and it writes C outputs with one store. Up to
+// SURF_MAX_STREAMS streams come as separate pointers, so the wrapper does
+// no stack or cast.
+//
+// The dot's products are of two bf16 values, 8 significant bits each, so
+// each is exact in fp32 wherever it neither overflows nor falls below the
+// normal range; then fma(n1, d1, n0*d0) = round(n0*d0 + n1*d1) is the
+// rounded sum of exact products, the same bits as the separate multiply
+// and add, and the dot takes 3 slots instead of 5. A thread takes that
+// form only where every nd value of its block's tile and every one of its
+// weights is 0, not finite, or of magnitude in [2^-60, 2^60] (products in
+// [2^-120, 2^120] or 0, inf or NaN alike in both forms); anywhere else it
+// keeps the separate roundings.
 // ---------------------------------------------------------------------------
-template <int S>
-__global__ void surface_kernel(const bf16* __restrict__ nd,
-                               const bf16* __restrict__ dirs,
-                               float* __restrict__ out, long long total,
-                               int K, int streams, int O) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const int o = (int)(t % O);
-  const long long r = t / O;
-  const int st = (int)(r % streams);
-  const long long p = r / streams;
-  const int so = S * O;
-  const bf16* dr = dirs + (size_t)st * 3 * so;
-  float d0[S], d1[S], d2[S], m[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    d0[s] = to_f32(dr[s * O + o]);
-    d1[s] = to_f32(dr[so + s * O + o]);
-    d2[s] = to_f32(dr[2 * so + s * O + o]);
-    m[s] = -INFINITY;
-  }
-  const bf16* np_ = nd + (size_t)p * K * streams * 3 + st * 3;
+#define SURF_MAX_STREAMS 4
+#define SURF_PTS 64       // points per block
+#define SURF_THREADS 256  // at most, per block
+#define SURF_OCB 128      // channel groups per block at most (grid.z more)
+
+struct SurfStreams {
+  const void* nd[SURF_MAX_STREAMS];    // [B, N, K, 3] each
+  const void* dirs[SURF_MAX_STREAMS];  // [3, S*O] each
+};
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// p[i] rounded to bf16, p fp32 or bf16
+__device__ __forceinline__ float ld_bf16(const void* p, size_t i, bool bf) {
+  return bf ? __bfloat162float(((const bf16*)p)[i])
+            : rn<bf16>(((const float*)p)[i]);
+}
+
+// a product of x with any value in the range is exact in fp32 or not
+// finite in both forms (see above)
+__device__ __forceinline__ bool exact_factor(float x) {
+  const float a = fabsf(x);
+  return a == 0.f || !(a <= 3.4028235e38f) || (a >= 0x1p-60f && a <= 0x1p60f);
+}
+
+// max over the K slots of point p's theta, unrounded, into m
+template <int S, int C, bool FMA>
+__device__ __forceinline__ void surface_max(
+    const float4* __restrict__ v, int K, const float (&w0)[S][C],
+    const float (&w1)[S][C], const float (&w2)[S][C], float (&m)[S][C]) {
+#pragma unroll 2
   for (int k = 0; k < K; ++k) {
-    const bf16* v = np_ + (size_t)k * streams * 3;
-    const float n0 = to_f32(v[0]), n1 = to_f32(v[1]), n2 = to_f32(v[2]);
+    const float4 n = v[k];
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
-      float th = dot3_rn(n0, n1, n2, d0[s], d1[s], d2[s]);
-      th = __bfloat162float(__float2bfloat16_rn(th));
-      m[s] = fmaxf(m[s], fmaxf(th, 0.f));
-    }
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float th =
+            FMA ? __fmaf_rn(n.z, w2[s][c],
+                            __fmaf_rn(n.y, w1[s][c], __fmul_rn(n.x, w0[s][c])))
+                : dot3_rn(n.x, n.y, n.z, w0[s][c], w1[s][c], w2[s][c]);
+        m[s][c] = max_nan(m[s][c], th);
+      }
   }
-  float acc = m[0];
+}
+
+template <int S, int C>
+__global__ void __launch_bounds__(SURF_THREADS)
+surface_kernel(SurfStreams in, unsigned bf16_mask, float* __restrict__ out,
+               long long points, int K, int streams, int O) {
+  extern __shared__ float4 s_nd[];   // [SURF_PTS * K]
+  const int st = blockIdx.y;
+  const int so = S * O, oc = O / C;
+  const int ocb = min(oc, SURF_OCB);
+  const int lanes = blockDim.x / ocb;   // points in parallel
+  const int pl = threadIdx.x / ocb;
+  const int j = blockIdx.z * ocb + threadIdx.x - pl * ocb;   // channel group
+  const int o0 = j * C;
+  const long long p0 = (long long)blockIdx.x * SURF_PTS;
+  const int np = (int)min((long long)SURF_PTS, points - p0);
+  const bool nd_bf = (bf16_mask >> st) & 1;
+  const bool dir_bf = (bf16_mask >> (SURF_MAX_STREAMS + st)) & 1;
+  bool nd_exact;
+
+  {
+    const void* ndp = in.nd[st];
+    const size_t e0 = (size_t)p0 * K * 3;
+    float* sf = (float*)s_nd;
+    bool ok = true;
+    for (int e = threadIdx.x; e < np * K * 3; e += blockDim.x) {
+      const int q = e / 3;
+      const float x = ld_bf16(ndp, e0 + e, nd_bf);
+      sf[q * 4 + (e - q * 3)] = x;
+      ok = ok && exact_factor(x);
+    }
+    nd_exact = __syncthreads_and(ok);
+  }
+  if (j >= oc) return;
+
+  float w0[S][C], w1[S][C], w2[S][C];
+  {
+    const void* dr = in.dirs[st];
 #pragma unroll
-  for (int s = 1; s < S; ++s) acc = __fadd_rn(acc, m[s]);
-  out[(size_t)p * streams * O + st * O + o] =
-      __bfloat162float(__float2bfloat16_rn(acc));
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int i = s * O + o0 + c;
+        w0[s][c] = ld_bf16(dr, i, dir_bf);
+        w1[s][c] = ld_bf16(dr, so + i, dir_bf);
+        w2[s][c] = ld_bf16(dr, 2 * so + i, dir_bf);
+      }
+  }
+  bool use_fma = nd_exact;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      use_fma = use_fma && exact_factor(w0[s][c]) &&
+                exact_factor(w1[s][c]) && exact_factor(w2[s][c]);
+  for (int p = pl; p < np; p += lanes) {
+    float m[S][C];
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int c = 0; c < C; ++c) m[s][c] = -INFINITY;
+    if (use_fma)
+      surface_max<S, C, true>(s_nd + p * K, K, w0, w1, w2, m);
+    else
+      surface_max<S, C, false>(s_nd + p * K, K, w0, w1, w2, m);
+    float acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      acc[c] = rn<bf16>(max_nan(m[0][c], 0.f));
+#pragma unroll
+      for (int s = 1; s < S; ++s)
+        acc[c] = __fadd_rn(acc[c], rn<bf16>(max_nan(m[s][c], 0.f)));
+      acc[c] = rn<bf16>(acc[c]);
+    }
+    float* dst = out + ((p0 + p) * streams + st) * O + o0;
+    if (C == 2)
+      *(float2*)dst = make_float2(acc[0], acc[C - 1]);
+    else
+      dst[0] = acc[0];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -592,26 +708,60 @@ __global__ void agg_kernel(const int* __restrict__ idx,
 
 #define GCN_PTS 8
 
-#define SURF_CASE(S)                                                    \
-  case S:                                                               \
-    surface_kernel<S><<<blocks, threads, 0, stream>>>(                  \
-        (const bf16*)nd, (const bf16*)dirs, out, total, K, streams, O); \
-    break;
+template <int C>
+static int launch_surface(const SurfStreams& in, unsigned bf16_mask,
+                          float* out, long long points, int K, int streams,
+                          int S, int O, cudaStream_t stream) {
+  typedef void (*surf_fn)(SurfStreams, unsigned, float*, long long, int, int,
+                          int);
+  surf_fn fn;
+  switch (S) {
+    case 1: fn = surface_kernel<1, C>; break;
+    case 2: fn = surface_kernel<2, C>; break;
+    case 3: fn = surface_kernel<3, C>; break;
+    case 4: fn = surface_kernel<4, C>; break;
+    case 5: fn = surface_kernel<5, C>; break;
+    case 6: fn = surface_kernel<6, C>; break;
+    case 7: fn = surface_kernel<7, C>; break;
+    case 8: fn = surface_kernel<8, C>; break;
+    default: return POSE_UNSUPPORTED;
+  }
+  const int oc = O / C;
+  const int ocb = oc < SURF_OCB ? oc : SURF_OCB;
+  int lanes = SURF_THREADS / ocb;
+  if (lanes > SURF_PTS) lanes = SURF_PTS;
+  const size_t smem = sizeof(float4) * SURF_PTS * (size_t)K;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  dim3 grid((unsigned)((points + SURF_PTS - 1) / SURF_PTS), streams,
+            (oc + ocb - 1) / ocb);
+  fn<<<grid, lanes * ocb, smem, stream>>>(in, bf16_mask, out, points, K,
+                                          streams, O);
+  return pose_last_error();
+}
 
-extern "C" int pose_gcn_surface(const void* nd, const void* dirs, float* out,
+// nd_i [B, N, K, 3] and dirs_i [3, S*O] for streams i < `streams` (the rest
+// null); bit i of bf16_mask says nd_i is bf16 (else fp32), bit
+// SURF_MAX_STREAMS + i the same of dirs_i.
+extern "C" int pose_gcn_surface(const void* nd0, const void* nd1,
+                                const void* nd2, const void* nd3,
+                                const void* dirs0, const void* dirs1,
+                                const void* dirs2, const void* dirs3,
+                                unsigned bf16_mask, float* out,
                                 long long points, int K, int streams, int S,
                                 int O, cudaStream_t stream) {
-  if (points < 1 || K < 1 || streams < 1 || O < 1) return POSE_UNSUPPORTED;
-  const long long total = points * streams * O;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  switch (S) {
-    SURF_CASE(1) SURF_CASE(2) SURF_CASE(3) SURF_CASE(4)
-    SURF_CASE(5) SURF_CASE(6) SURF_CASE(7) SURF_CASE(8)
-    default:
-      return POSE_UNSUPPORTED;
-  }
-  return pose_last_error();
+  if (points < 1 || K < 1 || K > 128 || streams < 1 ||
+      streams > SURF_MAX_STREAMS || O < 1)
+    return POSE_UNSUPPORTED;
+  const SurfStreams in = {{nd0, nd1, nd2, nd3}, {dirs0, dirs1, dirs2, dirs3}};
+  if (O % 2 == 0)
+    return launch_surface<2>(in, bf16_mask, out, points, K, streams, S, O,
+                             stream);
+  return launch_surface<1>(in, bf16_mask, out, points, K, streams, S, O,
+                           stream);
 }
 
 template <typename T>

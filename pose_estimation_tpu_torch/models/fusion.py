@@ -7,8 +7,8 @@ N -> N/4 -> N/16; two 9-D fuse ConvLayers; nearest-neighbour upsampling
 back to N. FusionNetLite's output is [B, N, 1280]; per forward it
 launches the KNN kernel 8 times (3 self searches, 5 in the PoolLayers),
 the fused linear aggregate twice (levels 0 and 1), the fused surface
-aggregate once and the nearest-source kernel twice (the two up-sampling
-maps). FusionNet widens level 1 to 256 channels with three extra
+aggregate once and the nearest-source kernel once (the two up-sampling
+maps in one launch). FusionNet widens level 1 to 256 channels with three extra
 ConvLayers (a third fused linear launch) and outputs [B, N, 1664]; its
 first fuse layer reads the 768-wide level-1 features, which is a wide
 ConvLayer (the wide-table aggregate kernel) while S*256 <= 768, i.e. at
@@ -68,6 +68,13 @@ def _fused_level1(streams, idx1, pts_list, feat_list, support_num):
     return [torch.relu(st.norm2(y)) for st, y in zip(streams, ys)]
 
 
+def _upsample_maps(vertices, pool_1, pool_2):
+    """Index of the nearest pool_1 and pool_2 point of every vertex, one
+    nearest-source launch for both."""
+    return po.nearest_index_multi(
+        vertices, [p[..., :3].detach().contiguous() for p in (pool_1, pool_2)])
+
+
 class FusionNetLite(Named):
     """Default fusion. Output [B, N, 1280]."""
 
@@ -111,13 +118,11 @@ class FusionNetLite(Named):
         fm_4 = self.ConvLayer_0(idx2, pool_2, f_pool_2)
         fm_5 = self.ConvLayer_1(idx2, pool_2, fm_4)
 
-        # nearest-neighbour upsample maps; pool_2's rows are a subsample of
-        # pool_1's, so near_2 sees the distances the JAX package's
-        # d1[..., s2] holds, element for element
-        near_1 = po.nearest_index(vertices, pool_1[..., :3].detach()
-                                  .contiguous())
-        near_2 = po.nearest_index(vertices, pool_2[..., :3].detach()
-                                  .contiguous())
+        # nearest-neighbour upsample maps, both from one launch as the JAX
+        # package takes both from one distance matrix d1; pool_2's rows are
+        # a subsample of pool_1's, so near_2 sees the distances d1[..., s2]
+        # holds, element for element
+        near_1, near_2 = _upsample_maps(vertices, pool_1, pool_2)
         feat_2_up = po.gather_rows(feat_2, near_1)
         fm_5_up = po.gather_rows(fm_5, near_2)
         return torch.cat([fm_5_up, feat_1, feat_2_up], -1)
@@ -172,9 +177,6 @@ class FusionNet(Named):
         fm_4 = self.ConvLayer_3(idx2, pool_2, f_pool_2)
         fm_5 = self.ConvLayer_4(idx2, pool_2, fm_4)
 
-        near_1 = po.nearest_index(vertices, pool_1[..., :3].detach()
-                                  .contiguous())
-        near_2 = po.nearest_index(vertices, pool_2[..., :3].detach()
-                                  .contiguous())
+        near_1, near_2 = _upsample_maps(vertices, pool_1, pool_2)
         return torch.cat([po.gather_rows(fm_5, near_2), feat_1,
                           po.gather_rows(feat_2, near_1)], -1)

@@ -38,8 +38,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "pose_knn": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "pose_min_dists": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
-    "pose_gcn_surface": [_P, _P, _P, _L, _I, _I, _I, _I, _P],
+    "pose_min_dists": [_P] * 5 + [_I] * 5 + [_P, _P, _I, _I, _F, _P],
+    "pose_gcn_surface": [_P] * 8 + [_I, _P, _L, _I, _I, _I, _I, _P],
     "pose_gcn_linear": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _P],
     "pose_gcn_aggregate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -3,7 +3,11 @@ versions.
 
   surface_multi  out_si = sum_s max_k relu(nd_si . dirs_si)
                  kernel csrc/gcn.cu:surface_kernel, replacing
-                 pose_estimation_tpu/ops/pallas_gcn.py:_surface_multi_kernel
+                 pose_estimation_tpu/ops/pallas_gcn.py:_surface_multi_kernel:
+                 a block per stream and tile of points with the tile's nd in
+                 shared memory, a thread per 2 channels of all supports
+                 with its direction weights in registers, bound by the fp32
+                 issue rate; it reads each stream's tensors as they come
   linear_multi   out_si = sum_s max_k relu(nd_si . dirs_si)
                                      * (X_si[idx] @ W_si + b_si)
                  replacing pallas_gcn.py:_linear_multi_kernel with two
@@ -198,17 +202,29 @@ def _recompute_vjp(plain, ts, needs, g):
     return [next(grads) if t.requires_grad else None for t in leaves]
 
 
+# streams per launch of the surface kernel (csrc/gcn.cu SURF_MAX_STREAMS)
+_SURF_MAX_STREAMS = 4
+
+
 def _surface_launch(nds, dirs_list, support_num: int) -> torch.Tensor:
+    """The kernel reads each stream's nd and dirs from its own tensor, fp32
+    or bf16 as it comes, and rounds them to bf16 itself."""
     streams = len(nds)
     b, n, k, _ = nds[0].shape
     o = dirs_list[0].shape[-1] // support_num
     dev = nds[0].device
-    nd = torch.stack(nds, dim=3).to(_BF16).contiguous()       # [B,N,K,St,3]
-    dirs = torch.stack(dirs_list).to(_BF16).contiguous()      # [St,3,S*O]
+    nds = [t.contiguous() for t in nds]
+    dirs = [t.contiguous() for t in dirs_list]
+    mask = 0
+    for i, (a, d) in enumerate(zip(nds, dirs)):
+        mask |= ((a.dtype == _BF16) << i
+                 | (d.dtype == _BF16) << (_SURF_MAX_STREAMS + i))
+    pad = [None] * (_SURF_MAX_STREAMS - streams)
     out = torch.empty((b, n, streams * o), dtype=torch.float32, device=dev)
     rc = _build.launch(_build.library().pose_gcn_surface, dev,
-                       nd.data_ptr(), dirs.data_ptr(), out.data_ptr(), b * n,
-                       k, streams, support_num, o)
+                       *[t.data_ptr() for t in nds], *pad,
+                       *[t.data_ptr() for t in dirs], *pad, mask,
+                       out.data_ptr(), b * n, k, streams, support_num, o)
     _build.check(rc, "pose_gcn_surface")
     surface_multi.launches += 1
     return out
@@ -246,6 +262,11 @@ def surface_multi(nds, dirs_list, support_num: int):
     so = dirs_list[0].shape[-1]
     if d != 3 or any(t.shape != nds[0].shape for t in nds):
         raise ValueError("surface_multi: nds must share one [B, N, K, 3] shape")
+    if streams > _SURF_MAX_STREAMS or not 1 <= nds[0].shape[2] <= 128:
+        raise ValueError(f"surface_multi: the kernel takes at most "
+                         f"{_SURF_MAX_STREAMS} streams and K <= 128")
+    if not 1 <= support_num <= 8:
+        raise ValueError("surface_multi: the kernel takes S <= 8")
     if any(t.shape != (3, so) for t in dirs_list) or so % support_num:
         raise ValueError("surface_multi: dirs must be [3, S*O]")
     for t in list(nds) + list(dirs_list):

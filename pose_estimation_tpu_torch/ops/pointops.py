@@ -5,21 +5,26 @@ each a hand-written CUDA kernel beside its plain version.
            pallas_pointops.py:_knn_kernel: the self searches of
            FusionNetLite (fusion.py:118,148,158) and the cross searches of
            PoolLayer (gcn3d.py:146).
-  nearest  csrc/min_dists.cu (`pose_min_dists`), replacing
+  nearest_multi
+           csrc/min_dists.cu (`pose_min_dists`), replacing
            pallas_pointops.py:_min_dists_kernel: distance to and index of
-           the nearest source point. `min_dists` (ADD-S, the symmetric pose
-           loss) puts it in a torch.autograd.Function; `nearest_index`
-           (FusionNetLite's up-sampling maps) takes the index.
+           the nearest point of each of up to 4 source clouds that share
+           the targets, in one launch. `nearest` is its one-cloud form;
+           `min_dists` (ADD-S, the symmetric pose loss) puts that in a
+           torch.autograd.Function; `nearest_index_multi` (the fusion nets'
+           two up-sampling maps) takes the indices.
 What bounds each kernel on the card, and its design, are described at the
 top of its source. In short: the searches are small, and a sorted top-kk
 per thread is bound by its insertions, so knn gives each query a group of
 8-32 lanes (chosen to fill the card): a first scan bounds the kk-th
 distance, a second keeps the few keys within the bound, and each keeps
 the rank it has among them in (distance, index) order, ties to the lower
-index; nearest is one thread per target.
+index; nearest_multi gives each target a group of 1-32 lanes (chosen to
+fill the card) that split the sources, and merges their minima by warp
+shuffles in torch.min's order.
 
-`knn` and `nearest` are the wrappers: the plain PyTorch version for CPU
-tensors, the kernel for CUDA tensors (or an exception; there is no
+`knn` and `nearest_multi` are the wrappers: the plain PyTorch version for
+CPU tensors, the kernel for CUDA tensors (or an exception; there is no
 fallback). Each counts its launches.
 """
 
@@ -86,20 +91,20 @@ def knn(queries: torch.Tensor, keys: torch.Tensor, k: int,
 knn.launches = 0
 
 
-def _check_clouds(name, target, source):
-    if target.device.type != "cuda" or source.device != target.device:
-        raise ValueError(f"{name}: tensors on {target.device} / "
-                         f"{source.device}")
-    for what, t in (("target", target), ("source", source)):
+def _check_clouds(name, target, sources):
+    for t in [target, *sources]:
+        if t.device.type != "cuda" or t.device != target.device:
+            raise ValueError(f"{name}: tensors on {target.device} / "
+                             f"{t.device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {what} must be float32, got {t.dtype}")
+            raise TypeError(f"{name}: clouds must be float32, got {t.dtype}")
         if t.ndim != 3 or t.shape[-1] != 3:
-            raise ValueError(f"{name}: {what} must be [B, n, 3], got "
+            raise ValueError(f"{name}: clouds must be [B, n, 3], got "
                              f"{tuple(t.shape)}")
         if not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be contiguous")
-    if source.shape[0] != target.shape[0]:
-        raise ValueError(f"{name}: batch sizes differ")
+            raise ValueError(f"{name}: clouds must be contiguous")
+        if t.shape[0] != target.shape[0]:
+            raise ValueError(f"{name}: batch sizes differ")
 
 
 def nearest_plain(target: torch.Tensor, source: torch.Tensor,
@@ -111,29 +116,60 @@ def nearest_plain(target: torch.Tensor, source: torch.Tensor,
     return torch.sqrt(torch.clamp(best, min=eps * eps)), idx.to(torch.int32)
 
 
+def nearest_multi_plain(target: torch.Tensor, sources, eps: float = 1e-8):
+    """nearest_plain of `target` against each source cloud in turn."""
+    return [nearest_plain(target, s, eps) for s in sources]
+
+
+# source clouds per launch (csrc/min_dists.cu MD_MAX_CLOUDS)
+_MAX_CLOUDS = 4
+
+
+def nearest_multi(target: torch.Tensor, sources, eps: float = 1e-8):
+    """Distance to, and index of, the nearest point of each source cloud
+    for every target, all clouds in one launch: a list of ([B, n] fp32,
+    [B, n] int32), one pair per cloud. No gradient: `min_dists` carries
+    one."""
+    sources = list(sources)
+    if target.device.type == "cpu" and all(s.device.type == "cpu"
+                                           for s in sources):
+        return nearest_multi_plain(target, sources, eps)
+    if not 1 <= len(sources) <= _MAX_CLOUDS:
+        raise ValueError(f"nearest_multi: 1 to {_MAX_CLOUDS} source clouds, "
+                         f"got {len(sources)}")
+    _check_clouds("nearest_multi", target, sources)
+    b, n, _ = target.shape
+    c = len(sources)
+    dist = torch.empty((c, b, n), dtype=torch.float32, device=target.device)
+    idx = torch.empty((c, b, n), dtype=torch.int32, device=target.device)
+    pad = [None] * (_MAX_CLOUDS - c)
+    rc = _build.launch(_build.library().pose_min_dists, target.device,
+                       target.data_ptr(), *[s.data_ptr() for s in sources],
+                       *pad, *[s.shape[1] for s in sources], *([0] * len(pad)),
+                       c, dist.data_ptr(), idx.data_ptr(), b, n, eps * eps)
+    _build.check(rc, "pose_min_dists")
+    nearest_multi.launches += 1
+    return list(zip(dist.unbind(0), idx.unbind(0)))
+
+
+nearest_multi.launches = 0
+
+
 def nearest(target: torch.Tensor, source: torch.Tensor, eps: float = 1e-8):
     """Distance to, and index of, the nearest source point of each target:
-    ([B, n] fp32, [B, n] int32). No gradient: `min_dists` carries one."""
-    if target.device.type == "cpu" and source.device.type == "cpu":
-        return nearest_plain(target, source, eps)
-    _check_clouds("nearest", target, source)
-    b, n, _ = target.shape
-    dist = torch.empty((b, n), dtype=torch.float32, device=target.device)
-    idx = torch.empty((b, n), dtype=torch.int32, device=target.device)
-    rc = _build.launch(_build.library().pose_min_dists, target.device,
-                       target.data_ptr(), source.data_ptr(), dist.data_ptr(),
-                       idx.data_ptr(), b, n, source.shape[1], eps * eps)
-    _build.check(rc, "pose_min_dists")
-    nearest.launches += 1
-    return dist, idx
-
-
-nearest.launches = 0
+    ([B, n] fp32, [B, n] int32); nearest_multi with one cloud."""
+    return nearest_multi(target, [source], eps)[0]
 
 
 def nearest_index(target: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
     """Index [B, n] int32 of the nearest source point of each target."""
     return nearest(target, source)[1]
+
+
+def nearest_index_multi(target: torch.Tensor, sources) -> list:
+    """Indices [B, n] int32 of the nearest point of each source cloud, one
+    launch for all clouds."""
+    return [i for _, i in nearest_multi(target, sources)]
 
 
 class _MinDists(torch.autograd.Function):

@@ -87,8 +87,51 @@ def test_surface_multi_matches_plain(dev, n, s):
                                 [t.to(dt) for t in dirs], s)
         ref = gcn.surface_multi_plain(nds, dirs, s)
         for a, b in zip(got, ref):
-            tol = 2.0 ** -8 * max(1.0, b.abs().max().item())
-            torch.testing.assert_close(a, b, rtol=0, atol=tol)
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,k,s,o,streams", [
+    (300, 10, 1, 8, 1), (37, 5, 2, 40, 2), (5, 3, 3, 128, 3),
+    (64, 10, 4, 8, 3), (300, 7, 5, 40, 1), (100, 10, 6, 128, 2),
+    (33, 10, 7, 128, 3), (70, 4, 8, 40, 3), (50, 6, 3, 5, 2),
+    (40, 9, 2, 600, 4)])
+def test_surface_multi_is_bit_exact(dev, n, k, s, o, streams):
+    """Kernel 2 against surface_multi_plain, bit for bit: N not a multiple
+    of the 64-point tile, S = 1..8, 1-4 streams, O = 8, 40, 128, an odd O
+    (one channel a thread) and O = 600 (more channel groups than a block
+    holds), each stream's nd and dirs in fp32 or bf16 as they come."""
+    nds, dirs, _, _, _, _, _ = _gcn_inputs(dev, n, n, k, s=s, o=o,
+                                           streams=streams, seed=n + s)
+    for first in (torch.float32, torch.bfloat16):
+        other = torch.bfloat16 if first == torch.float32 else torch.float32
+        a = [t.to(first if i % 2 == 0 else other) for i, t in enumerate(nds)]
+        d = [t.to(other if i % 2 == 0 else first) for i, t in
+             enumerate(dirs)]
+        gcn.surface_multi.launches = 0
+        got = gcn.surface_multi(a, d, s)
+        assert gcn.surface_multi.launches == 1
+        for x, r in zip(got, gcn.surface_multi_plain(a, d, s)):
+            assert x.shape == (2, n, o) and x.dtype == torch.float32
+            assert torch.equal(x, r)
+
+
+def test_surface_multi_on_bf16_rounding_ties(dev):
+    """nd and dirs drawn from values whose products and sums are exact in
+    fp32 and land on bf16 rounding midpoints (1 + 2^-8 = 1 + 2^-4 * 2^-4,
+    ...), with zeros and negatives: theta is rounded half to even after
+    the max over k exactly as the plain version rounds each slot."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    vals = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.0 ** -4, -2.0 ** -4,
+                         1.0 + 2.0 ** -7, -(1.0 + 2.0 ** -7), 0.5, 2.0 ** -3,
+                         -2.0 ** -8], device=dev)
+    pick = lambda *shape: vals[torch.randint(0, len(vals), shape,
+                                             generator=g, device=dev)]
+    for s, o in ((3, 16), (7, 128)):
+        nds = [pick(2, 130, 6, 3) for _ in range(3)]
+        dirs = [pick(3, s * o) for _ in range(3)]
+        got = gcn.surface_multi(nds, dirs, s)
+        for x, r in zip(got, gcn.surface_multi_plain(nds, dirs, s)):
+            assert torch.equal(x, r)
 
 
 @pytest.mark.parametrize("nq,nk,k,ex", [(300, 300, 10, True),
@@ -162,11 +205,12 @@ def test_tiny_krrn_launch_counts_and_plain_cpu_parity(dev):
         ref = model(*cpu_args)
         model.to(dev)
         for f in (gcn.linear_multi, gcn.surface_multi, pointops.knn,
-                  pointops.nearest):
+                  pointops.nearest_multi):
             f.launches = 0
         got = model(*[a.to(dev) for a in cpu_args])
     assert (gcn.linear_multi.launches, gcn.surface_multi.launches,
-            pointops.knn.launches, pointops.nearest.launches) == (2, 1, 8, 2)
+            pointops.knn.launches,
+            pointops.nearest_multi.launches) == (2, 1, 8, 1)
     for key, rtol in (("xyz_emb", 1e-4), ("pred_t", 2e-3)):
         r = ref[key]
         tol = rtol * max(1.0, r.abs().max().item())
@@ -187,6 +231,55 @@ def test_nearest_matches_plain(dev, b, n, m):
     assert torch.equal(d, dp) and torch.equal(i, ip)
 
 
+def _assert_nearest_equal(got, ref):
+    for (d, i), (dp, ip) in zip(got, ref, strict=True):
+        assert d.shape == dp.shape and i.dtype == torch.int32
+        torch.testing.assert_close(d, dp, rtol=0, atol=0, equal_nan=True)
+        assert torch.equal(i, ip)
+
+
+@pytest.mark.parametrize("b,n,sizes", [
+    (2, 300, (500,)), (3, 1, (2500, 7, 300)), (2, 1025, (256, 64)),
+    (32, 1024, (256, 64)), (8, 1024, (500,)), (2, 2048, (2048, 90, 1030)),
+    (8, 3000, (3000,)), (1, 70, (1, 2, 3, 33))])
+def test_nearest_multi_matches_plain(dev, b, n, sizes):
+    """One launch for 1-4 source clouds of different sizes, against a loop
+    of nearest_plain, bit for bit: batch * targets below what fills the
+    card (32 lanes a target) and above it (1-2 lanes), one source, large
+    clouds (two targets a lane group), several source tiles."""
+    g = torch.Generator(device=dev).manual_seed(sum(sizes) + n)
+    t = torch.randn((b, n, 3), generator=g, device=dev)
+    srcs = [torch.randn((b, m, 3), generator=g, device=dev) for m in sizes]
+    t[:, :1] = srcs[0][:, :1]                             # distance 0
+    pointops.nearest_multi.launches = 0
+    got = pointops.nearest_multi(t, srcs)
+    assert pointops.nearest_multi.launches == 1
+    _assert_nearest_equal(got, pointops.nearest_multi_plain(t, srcs))
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 300, 500), (32, 1024, 256),
+                                   (4, 2048, 4096)])
+def test_nearest_multi_ties_and_nans(dev, b, n, m):
+    """Duplicated sources on a coarse grid (many exactly equal distances:
+    the lower index wins, across a target's lanes too) and a NaN source
+    row, a NaN target and an infinite source (the first NaN wins, as
+    torch.min's)."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    grid = lambda *shape: torch.randint(0, 4, shape, generator=g,
+                                        device=dev) * 0.25
+    s = grid(b, m, 3)
+    s[:, m // 2:] = s[:, :m - m // 2]
+    t = grid(b, n, 3)
+    nan_s = s.clone()
+    nan_s[:, m // 3] = float("nan")
+    nan_s[:, m // 5, 1] = float("inf")
+    nan_t = t.clone()
+    nan_t[:, n // 2, 0] = float("nan")
+    for tt, srcs in ((t, [s]), (t, [s, nan_s]), (nan_t, [nan_s, s])):
+        _assert_nearest_equal(pointops.nearest_multi(tt, srcs),
+                              pointops.nearest_multi_plain(tt, srcs))
+
+
 def test_nearest_rejects_what_the_kernel_does_not_take(dev):
     pts = torch.randn((2, 64, 3), device=dev)
     with pytest.raises(ValueError):
@@ -197,6 +290,10 @@ def test_nearest_rejects_what_the_kernel_does_not_take(dev):
         pointops.nearest(pts, pts.cpu())
     with pytest.raises(ValueError):
         pointops.nearest(pts, pts[:1].contiguous())        # batch sizes
+    with pytest.raises(ValueError):
+        pointops.nearest_multi(pts, [pts] * 5)             # > 4 clouds
+    with pytest.raises(ValueError):
+        pointops.nearest_multi(pts, [pts, pts[:1].contiguous()])
 
 
 def test_min_dists_backward_matches_plain_autograd(dev):
@@ -270,11 +367,12 @@ def test_tiny_train_step_launch_counts(dev):
                  if k in ("choose", "cls", "region", "multi_cls_mask") else v)
              for k, v in batch.items()}
     for f in (gcn.linear_multi, gcn.surface_multi, pointops.knn,
-              pointops.nearest):
+              pointops.nearest_multi):
         f.launches = 0
     m = build_train_step(model, tx, cfg)(state, batch, opt_pose=True)
     assert (gcn.linear_multi.launches, gcn.surface_multi.launches,
-            pointops.knn.launches, pointops.nearest.launches) == (2, 1, 8, 3)
+            pointops.knn.launches,
+            pointops.nearest_multi.launches) == (2, 1, 8, 2)
     assert float(m["skipped_nonfinite"]) == 0.0
     assert all(torch.isfinite(v) for v in m.values())
 
@@ -359,7 +457,7 @@ def test_aggregate_rejects_what_the_kernel_does_not_take(dev):
 def test_tiny_full_krrn_launch_counts_and_plain_cpu_parity(dev):
     """The full FusionNet at S=2: its first fuse layer is wide, so one
     wide-table aggregate launch per forward beside 3 linear, 1 surface,
-    8 KNN and 2 nearest-source launches."""
+    8 KNN and 1 nearest-source launch (both up-sampling maps)."""
     torch.manual_seed(0)
     model = KRRN(TINY, fusion_variant="full").eval()
     rng = np.random.RandomState(0)
@@ -372,12 +470,12 @@ def test_tiny_full_krrn_launch_counts_and_plain_cpu_parity(dev):
         ref = model(*cpu_args)
         model.to(dev)
         for f in (gcn.linear_multi, gcn.surface_multi, pointops.knn,
-                  pointops.nearest, gcn.aggregate):
+                  pointops.nearest_multi, gcn.aggregate):
             f.launches = 0
         got = model(*[a.to(dev) for a in cpu_args])
     assert (gcn.linear_multi.launches, gcn.surface_multi.launches,
-            pointops.knn.launches, pointops.nearest.launches,
-            gcn.aggregate.launches) == (3, 1, 8, 2, 1)
+            pointops.knn.launches, pointops.nearest_multi.launches,
+            gcn.aggregate.launches) == (3, 1, 8, 1, 1)
     for key, rtol in (("xyz_emb", 1e-4), ("pred_t", 2e-3)):
         r = ref[key]
         tol = rtol * max(1.0, r.abs().max().item())
