@@ -8,7 +8,7 @@ Phases (each raises on failure, the script then exits non-zero):
   2. build the port's CUDA kernels from csrc/ (ops/_build.py); ptxas's
      registers and spills, and the HGMMA (tensor-core) instructions per
      kernel in the library's SASS (cuobjdump): kernel 1's bf16 table pass
-     must have some;
+     must have some; kernel 5's packed bf16 instructions;
   3. each kernel against its plain PyTorch version on the card, at the
      serving path's shapes (bs=32) in fp32 and bf16, kernel 1 also at the
      full FusionNet's level-1 shapes, the surface aggregate bit for bit,
@@ -16,12 +16,14 @@ Phases (each raises on failure, the script then exits non-zero):
      and the two up-sampling maps in one call), at the serving path's
      merged call (bs=32) and at 8192 x 8192 points with its backward,
      distances and indices bit for bit, the wide-table aggregate at the
-     profiler's shape and at the full FusionNet's fm_4 (S=2) with its
-     backward: max |error|, the median times of both (CUDA events), the
+     profiler's shape and at the full FusionNet's fm_4 (S=2) bit for bit
+     with its backward; kernels 1 and 5 also with an infinite table row,
+     a NaN nd entry and a NaN direction column (the plain version's NaN
+     positions): max |error|, the median times of both (CUDA events), the
      least time the card could take (bound) and, where one PyTorch call
      computes the same function, its time; KNN's indices must equal the
      plain version's; then the device time of each CUDA kernel of kernels
-     1-4 at these shapes (torch.profiler) beside the wrappers' event
+     1-5 at these shapes (torch.profiler) beside the wrappers' event
      times;
   4. the pose stage fed ground-truth normalised coordinates of a synthetic
      batch: mean rotation error < 1 deg and ADD@0.1d >= 0.9;
@@ -103,10 +105,12 @@ FULL_SERVE = dict(LITE_SERVE, linear_multi=3)
 FULL_S2_SERVE = dict(FULL_SERVE, aggregate=1)
 FULL_S2_TRAIN = dict(FULL_S2_SERVE, min_dists=2)
 
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s; fp32 on the CUDA
-# cores and bf16 products on the tensor cores, operations/s
+# H100 SXM peaks: HBM bytes/s; fp32 on the CUDA cores and bf16 products on
+# the tensor cores (NVIDIA's data sheet), packed bf16x2 arithmetic on the
+# CUDA cores (BF16 non-tensor, NVIDIA's Hopper architecture white paper),
+# operations/s
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"fp32": 67e12, "bf16_tensor": 989e12}
+PEAK_OPS_S = {"fp32": 67e12, "bf16_tensor": 989e12, "bf16_packed": 133.8e12}
 
 
 def bound(nbytes, ops):
@@ -432,10 +436,59 @@ def check_linear(dev, g):
         for kind, v in linear_ops(nds, x, ws, idx, s).items():
             ops[kind] = ops.get(kind, 0) + v
     worst = max(worst, check_linear_full(dev, g))
+    check_linear_nan(dev, g)
     b_ms, b_by = bound(n_bytes, ops)
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "tolerance": "fp32 1e-4, bf16 2e-2, times max(1, max|ref|)"}
+
+
+def _pick(g, dev, vals, shape):
+    import torch
+    v = torch.tensor(vals, device=dev)
+    return v[torch.randint(0, len(vals), shape, generator=g, device=dev)]
+
+
+def check_linear_nan(dev, g):
+    """Kernel 1 at level 0 (B=32, N=M=1024, K=10, 3 streams, Cin=128, S=7,
+    O=128) on inputs with few significant bits, where theta, the table and
+    the products are exact whatever the order, so the kernel equals the
+    plain version bit for bit; then with an inf in an input row (its table
+    row +-inf, NaN where W is 0; NaN where theta is 0), a NaN nd entry and
+    a NaN direction column: the plain version's NaN positions
+    (assert_close with rtol = atol = 0 and equal_nan)."""
+    import torch
+    from pose_estimation_tpu_torch.ops import gcn, pointops
+    s, o, n, k, cin = 7, 128, 1024, 10, 128
+    pts = _cloud(g, BS, n, dev)
+    idx = pointops.knn(pts, pts, k, True)
+    nds = [_pick(g, dev, [0.0, 1.0, -1.0, 0.5, -0.5, 0.25], (BS, n, k, 3))
+           for _ in range(3)]
+    dirs = [_pick(g, dev, [0.0, 1.0, -0.5, 0.5, -0.25], (3, s * o))
+            for _ in range(3)]
+    xs = [_pick(g, dev, [0.0, 1.0, -1.0, 2.0, 0.5], (BS, n, cin))
+          for _ in range(3)]
+    ws = [_pick(g, dev, [0.0, 0.25, -0.5, 0.5, 1.0], (cin, s * o))
+          for _ in range(3)]
+    bs = [_pick(g, dev, [0.0, 0.125, -0.125], (s * o,)) for _ in range(3)]
+    for poisoned in (False, True):
+        if poisoned:
+            xs[0][0, idx[0, 100, 2], 7] = float("inf")
+            nds[1][1, 200, 4, 1] = float("nan")
+            dirs[2][0, 2 * o + 9] = float("nan")
+        for dt in (torch.float32, torch.bfloat16):
+            x = [t.to(dt) for t in xs]
+            got = gcn.linear_multi(nds, dirs, x, ws, bs, idx, s)
+            ref = gcn.linear_multi_plain(nds, dirs, x, ws, bs, idx, s)
+            nan = sum(r.isnan().sum().item() for r in ref)
+            log(f"  linear_multi level 0 {dt}, exact inputs"
+                f"{', poisoned' if poisoned else ''}: {nan} NaN outputs in "
+                f"the plain version")
+            if poisoned and not nan:
+                raise AssertionError("linear_multi: no NaN to compare")
+            for a, r in zip(got, ref):
+                torch.testing.assert_close(a, r, rtol=0, atol=0,
+                                           equal_nan=True)
 
 
 def linear_bytes(nds, dirs, xs, ws, bs, idx, s):
@@ -497,6 +550,9 @@ def check_linear_full(dev, g):
 
 
 def _agg_inputs(g, dev, b, n, k, d, s, o):
+    """Kernel 5's inputs as the wide ConvLayer passes them: nd and dirs in
+    fp32, and X @ W + b ([B, M, (S+1)*O], the first O columns the layer's
+    centre term), of which the table is a column slice (`_table`)."""
     import torch
     from pose_estimation_tpu_torch.core.mathsafe import safe_normalize
     from pose_estimation_tpu_torch.ops import pointops
@@ -505,51 +561,79 @@ def _agg_inputs(g, dev, b, n, k, d, s, o):
     nd = safe_normalize(torch.randn((b, n, k, d), generator=g, device=dev))
     dirs = safe_normalize(torch.randn((d, s * o), generator=g, device=dev),
                           dim=0)
-    feats = torch.randn((b, n, s * o), generator=g, device=dev)
-    return nd, dirs, feats, idx
+    wide = torch.randn((b, n, (s + 1) * o), generator=g, device=dev)
+    return nd, dirs, wide, idx
+
+
+def _table(wide, o, dt, name="fm_4"):
+    """The table in dtype dt: at fm_4 a view, as the wide ConvLayer passes
+    it; at the profiler's shape its own tensor, as profile_eval's."""
+    f = wide.to(dt)[..., o:]
+    return f.contiguous() if name == "profiler" else f
+
+
+# kernel 5's shapes: the full FusionNet's fm_4 at S=2 (its first fuse
+# layer), and the component profiler's (tools/profile_eval.py)
+AGG_SHAPES = (("profiler", (1024, 10, 3, 7, 128)),
+              ("fm_4", (64, 8, 9, 2, 256)))
 
 
 def aggregate_bound(nd, dirs, feats, idx, s):
     """Inputs read once, the fp32 output written once; per (point, slot,
     support, channel) a D-term dot (2D - 1), relu, product and max, then
-    the support sums."""
+    the support sums: packed bf16x2 operations for a bf16 table, fp32
+    otherwise."""
+    import torch
     b, n, k, d = nd.shape
     so = dirs.shape[-1]
+    kind = "bf16_packed" if feats.dtype == torch.bfloat16 else "fp32"
     return bound(nbytes(nd, dirs, feats, idx) + b * n * (so // s) * 4,
-                 {"fp32": b * n * k * so * (2 * d + 2)
+                 {kind: b * n * k * so * (2 * d + 2)
                   + b * n * (so // s) * (s - 1)})
 
 
 def check_aggregate(dev, g):
     """Kernel 5 against aggregate_plain at the profiler's shape (B=32,
     N=M=1024, K=10, D=3, S=7, O=128) and at the full FusionNet's fm_4 at
-    S=2 (B=32, N=M=64, K=8, D=9, S*O=512), fp32 and bf16: the kernel
-    rounds as the plain version does, op for op, so the aim is the last
-    bit; the tolerance is one bf16 ulp of max|ref| in bf16 and 1e-5 *
-    max(1, max|ref|) in fp32. The backward at fm_4's shape in fp32
-    against autograd through the plain version: 1e-3 * max(1, max|ref|).
-    The entry's times and bound are fm_4's in bf16 (the main path's)."""
+    S=2 (B=32, N=M=64, K=8, D=9, S*O=512), fp32 and bf16 tables: bit for
+    bit (torch.equal); then with an inf table row, -inf in part of
+    another, a NaN nd entry and a NaN direction column: the plain
+    version's NaN positions (rtol = atol = 0, equal_nan). The backward at
+    fm_4's shape in fp32 against autograd through the plain version:
+    1e-3 * max(1, max|ref|). The entry's times and bound are fm_4's with a
+    bf16 table (the main path's)."""
     import torch
     from pose_estimation_tpu_torch.ops import gcn
     worst, res = 0.0, {}
-    for name, (n, k, d, s, o) in (("profiler", (1024, 10, 3, 7, 128)),
-                                  ("fm_4", (64, 8, 9, 2, 256))):
-        nd, dirs, feats, idx = _agg_inputs(g, dev, BS, n, k, d, s, o)
+    for name, (n, k, d, s, o) in AGG_SHAPES:
+        nd, dirs, wide, idx = _agg_inputs(g, dev, BS, n, k, d, s, o)
         for dt in (torch.float32, torch.bfloat16):
-            f = feats.to(dt)
+            f = _table(wide, o, dt, name)
             got = gcn.aggregate(nd, dirs, f, idx, s)
             ref = gcn.aggregate_plain(nd, dirs, f, idx, s)
             err = (got - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            tol = (2.0 ** -8 * scale if dt == torch.bfloat16
-                   else 1e-5 * max(1.0, scale))
-            log(f"  aggregate {name} {dt}: max |err| {err:.3e} (tol "
-                f"{tol:.3e}), bit-exact {torch.equal(got, ref)}, max |ref| "
-                f"{scale:.3f}")
-            if not err <= tol:
-                raise AssertionError(f"aggregate {name} {dt}: {err} > {tol}")
-            worst = max(worst, err)
-        f = feats.to(torch.bfloat16)
+            log(f"  aggregate {name} {dt}: max |err| {err:.3e}, bit-equal "
+                f"share {(got == ref).float().mean().item():.6f}, max |ref| "
+                f"{ref.abs().max().item():.3f}")
+            if not torch.equal(got, ref):
+                raise AssertionError(f"aggregate {name} {dt}: {err}")
+            bad = f.clone()
+            bad[0, idx[0, 7, 2]] = float("inf")
+            bad[-1, idx[-1, 9, 0], ::3] = -float("inf")
+            nd_bad, dirs_bad = nd.clone(), dirs.clone()
+            nd_bad[1, 5, 1, d - 1] = float("nan")
+            dirs_bad[1, o + 3] = float("nan")
+            got = gcn.aggregate(nd_bad, dirs_bad, bad, idx, s)
+            ref = gcn.aggregate_plain(nd_bad, dirs_bad, bad, idx, s)
+            log(f"  aggregate {name} {dt}, poisoned: "
+                f"{ref.isnan().sum().item()} NaN and "
+                f"{ref.isinf().sum().item()} infinite outputs in the plain "
+                f"version")
+            if not ref.isnan().any():
+                raise AssertionError(f"aggregate {name}: no NaN to compare")
+            torch.testing.assert_close(got, ref, rtol=0, atol=0,
+                                       equal_nan=True)
+        f = _table(wide, o, torch.bfloat16, name)
         t_k = cuda_ms(lambda: gcn.aggregate(nd, dirs, f, idx, s))
         t_p = cuda_ms(lambda: gcn.aggregate_plain(nd, dirs, f, idx, s),
                       reps=5)
@@ -558,23 +642,32 @@ def check_aggregate(dev, g):
             f"{t_p:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         res[name] = {"ms": t_k, "plain_ms": t_p, "bound_ms": b_ms,
                      "bound_by": b_by}
+    zero = gcn.aggregate(torch.ones((1, 4, 1, 3), device=dev),
+                         torch.full((3, 8), -0.0, device=dev),
+                         torch.ones((1, 4, 8), device=dev,
+                                    dtype=torch.bfloat16),
+                         torch.zeros((1, 4, 1), dtype=torch.int32,
+                                     device=dev), 1)
+    log(f"  aggregate: relu of theta = -0 gives "
+        f"{'-0' if zero.signbit().all() else '+0'} (torch.relu: -0)")
+    feats = _table(wide, o, torch.float32)
     leaves = [t.clone().requires_grad_() for t in (nd, dirs, feats)]
     twins = [t.clone().requires_grad_() for t in (nd, dirs, feats)]
-    cot = torch.randn(leaves[0].shape[:2] + (256,), generator=g, device=dev)
-    gcn.aggregate(*leaves, idx, 2).backward(cot)
-    gcn.aggregate_plain(*twins, idx, 2).backward(cot)
+    cot = torch.randn(leaves[0].shape[:2] + (o,), generator=g, device=dev)
+    gcn.aggregate(*leaves, idx, s).backward(cot)
+    gcn.aggregate_plain(*twins, idx, s).backward(cot)
     for what, a, r in zip(("nd", "dirs", "feats"), leaves, twins):
         err = (a.grad - r.grad).abs().max().item()
         tol = 1e-3 * max(1.0, r.grad.abs().max().item())
-        log(f"  aggregate backward fm_4 fp32, {what} gradient: max |err| "
-            f"{err:.3e} (tol {tol:.3e})")
+        log(f"  aggregate backward fm_4 fp32, {what} gradient: "
+            f"max |err| {err:.3e} (tol {tol:.3e})")
         if not err <= tol:
             raise AssertionError(f"aggregate backward {what}: {err} > {tol}")
         worst = max(worst, err)
     return dict(res["fm_4"], max_abs_err=worst, library_ms=None,
                 profiler_shape=res["profiler"],
-                tolerance="forward bf16 one ulp of max|ref|, fp32 1e-5; "
-                          "backward 1e-3, times max(1, max|ref|)")
+                tolerance="forward bit for bit (NaN positions equal); "
+                          "backward 1e-3 * max(1, max|ref|)")
 
 
 # ---------------------------------------------------------------------------
@@ -899,9 +992,10 @@ def ptxas_summary(build_log):
     return per
 
 
-def hgmma_counts():
-    """HGMMA (warpgroup tensor-core product) instructions per kernel in the
-    built library's SASS, from cuobjdump -sass."""
+def sass_counts(opcodes):
+    """Instructions per kernel in the built library's SASS (cuobjdump
+    -sass) whose opcode starts with one of `opcodes`: {kernel: {opcode:
+    n}}."""
     from pose_estimation_tpu_torch.ops import _build
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     so = _build.BUILD_ROOT / _build.source_hash() / "libpose_kernels.so"
@@ -914,19 +1008,25 @@ def hgmma_counts():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = _kernel_name(m.group(1))
-            per.setdefault(name, 0)
-        elif name is not None and "HGMMA" in line:
-            per[name] += 1
+            per.setdefault(name, {})
+            continue
+        m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name is not None and m and m.group(1).startswith(opcodes):
+            op = m.group(1)
+            per[name][op] = per[name].get(op, 0) + 1
     return per
 
 
 OWN_KERNELS = ("table_kernel", "table_wgmma_kernel", "linear_agg_kernel",
-               "knn_kernel", "surface_kernel", "min_dists_kernel")
+               "knn_kernel", "surface_kernel", "min_dists_kernel",
+               "agg_kernel", "wide_agg_kernel")
 
 
 def kernel_split(dev, reps=10):
-    """Device time of each CUDA kernel of kernels 1-4 at phase 3's shapes
-    (bf16 for kernel 1; kernel 2 with bf16 and with fp32 nd and dirs),
+    """Device time of each CUDA kernel of kernels 1-5 at phase 3's shapes
+    (bf16 for kernel 1; kernel 2 with bf16 and with fp32 nd and dirs;
+    kernel 5 at fm_4 and the profiler's shape with fp32 nd and dirs and a
+    bf16 table, fm_4's a column slice as the wide ConvLayer passes it),
     from torch.profiler's CUDA activity, beside the wrapper's CUDA-event
     time (which adds the wrapper's host cost where the host is slower than
     the card). Kernels that are not the port's own are the wrapper's
@@ -985,6 +1085,12 @@ def kernel_split(dev, reps=10):
     big = [_cloud(g, TRAIN_BS, 8192, dev) for _ in range(2)]
     cases.append((f"min_dists B={TRAIN_BS} 8192x8192", 0,
                   lambda: pointops.nearest(*big), (md,)))
+    for name, (n, k, d, s, o) in AGG_SHAPES:
+        nd, dirs, wide, idx = _agg_inputs(g, dev, BS, n, k, d, s, o)
+        f = _table(wide, o, torch.bfloat16, name)
+        cases.append((f"aggregate {name}", int(name == "fm_4"),
+                      lambda a=(nd, dirs, f, idx, s): gcn.aggregate(*a),
+                      ((("wide_agg_kernel", "agg_kernel"), 1),)))
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
     res = {}
@@ -1133,11 +1239,18 @@ def main(argv=None) -> int:
     for name, (regs, spill, n) in ptxas_summary(_build.build_log).items():
         log(f"    ptxas {name}: {n} instantiation(s), at most {regs} "
             f"registers, {spill} bytes spilled in all")
-    hgmma = hgmma_counts()
+    sass = sass_counts(("HGMMA", "HFMA2", "HMUL2", "HADD2", "HMNMX2"))
     log("    HGMMA instructions in the SASS: " + (", ".join(
-        f"{k} {v}" for k, v in hgmma.items() if v) or "none"))
-    if not hgmma.get("table_wgmma_kernel"):
+        f"{k} {sum(v for o, v in c.items() if o.startswith('HGMMA'))}"
+        for k, c in sass.items() if any(o.startswith("HGMMA") for o in c))
+        or "none"))
+    if not any(o.startswith("HGMMA") for o in sass.get("table_wgmma_kernel",
+                                                         {})):
         raise AssertionError("kernel 1's table pass has no HGMMA")
+    # kernel 5's packed bf16 arithmetic (all instantiations): an HFMA2 with
+    # a product and a sum of two variables would be a fused multiply-add
+    log(f"    packed half-precision instructions in wide_agg_kernel: "
+        f"{sass.get('wide_agg_kernel', {})}")
 
     log("[3] kernels vs plain versions (bs=32 serving shapes; bs=8 train "
         "shapes for min_dists)")
@@ -1147,7 +1260,12 @@ def main(argv=None) -> int:
                "knn": check_knn(dev, g),
                "min_dists": check_min_dists(dev, g),
                "aggregate": check_aggregate(dev, g)}
-    kernel_split(dev)
+    split = kernel_split(dev)
+    for name, _ in AGG_SHAPES:
+        row = split[f"aggregate {name}"]
+        device = row.get("wide_agg_kernel", 0.0)
+        r = results["aggregate"]
+        (r if name == "fm_4" else r["profiler_shape"])["device_ms"] = device
 
     from pose_estimation_tpu_torch.configs import schema
     cfg = schema.Config()
@@ -1199,8 +1317,8 @@ def main(argv=None) -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
-                        **({"serving_maps": r["serving_maps"]}
-                           if "serving_maps" in r else {})})
+                        **{k: r[k] for k in ("device_ms", "profiler_shape",
+                                             "serving_maps") if k in r}})
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

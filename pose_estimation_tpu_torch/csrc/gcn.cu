@@ -6,7 +6,7 @@
 // linear:   out[n, o] = sum_s max_k theta[n, k, s, o] * T[idx[n, k], s*O + o]
 //           with the support table T = X @ W + b at every point.
 // aggregate: the linear form for one stream with the table F given and
-//           d = 3 or 9 (agg_kernel).
+//           d = 3 or 9 (wide_agg_kernel).
 // Several streams (the vertex / xyz / normal streams of the fusion nets)
 // share one KNN graph and run in one launch; outputs are [B, N, streams*O]
 // fp32.
@@ -114,10 +114,13 @@ __device__ __forceinline__ void surface_max(
   }
 }
 
-template <int S, int C>
+// SP supports a pass: a thread walks the S supports in passes of SP (S <= 8
+// takes one pass) and carries the fp32 support sum from one pass to the
+// next in its own output elements, so any S keeps the order s = 0..S-1.
+template <int SP, int C>
 __global__ void __launch_bounds__(SURF_THREADS)
 surface_kernel(SurfStreams in, unsigned bf16_mask, float* __restrict__ out,
-               long long points, int K, int streams, int O) {
+               long long points, int K, int streams, int S, int O) {
   extern __shared__ float4 s_nd[];   // [SURF_PTS * K]
   const int st = blockIdx.y;
   const int so = S * O, oc = O / C;
@@ -147,50 +150,56 @@ surface_kernel(SurfStreams in, unsigned bf16_mask, float* __restrict__ out,
   }
   if (j >= oc) return;
 
-  float w0[S][C], w1[S][C], w2[S][C];
-  {
-    const void* dr = in.dirs[st];
+  for (int s0 = 0; s0 < S; s0 += SP) {
+    const bool last = s0 + SP >= S;
+    float w0[SP][C], w1[SP][C], w2[SP][C];
+    {
+      const void* dr = in.dirs[st];
 #pragma unroll
-    for (int s = 0; s < S; ++s)
+      for (int s = 0; s < SP; ++s)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int i = (s0 + s) * O + o0 + c;
+          const bool live = s0 + s < S;
+          w0[s][c] = live ? ld_bf16(dr, i, dir_bf) : 0.f;
+          w1[s][c] = live ? ld_bf16(dr, so + i, dir_bf) : 0.f;
+          w2[s][c] = live ? ld_bf16(dr, 2 * so + i, dir_bf) : 0.f;
+        }
+    }
+    bool use_fma = nd_exact;
+#pragma unroll
+    for (int s = 0; s < SP; ++s)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        use_fma = use_fma && exact_factor(w0[s][c]) &&
+                  exact_factor(w1[s][c]) && exact_factor(w2[s][c]);
+    for (int p = pl; p < np; p += lanes) {
+      float m[SP][C];
+#pragma unroll
+      for (int s = 0; s < SP; ++s)
+#pragma unroll
+        for (int c = 0; c < C; ++c) m[s][c] = -INFINITY;
+      if (use_fma)
+        surface_max<SP, C, true>(s_nd + p * K, K, w0, w1, w2, m);
+      else
+        surface_max<SP, C, false>(s_nd + p * K, K, w0, w1, w2, m);
+      float* dst = out + ((p0 + p) * streams + st) * O + o0;
+      float acc[C];
 #pragma unroll
       for (int c = 0; c < C; ++c) {
-        const int i = s * O + o0 + c;
-        w0[s][c] = ld_bf16(dr, i, dir_bf);
-        w1[s][c] = ld_bf16(dr, so + i, dir_bf);
-        w2[s][c] = ld_bf16(dr, 2 * so + i, dir_bf);
+        const float first = rn<bf16>(max_nan(m[0][c], 0.f));
+        acc[c] = s0 == 0 ? first : __fadd_rn(dst[c], first);
+#pragma unroll
+        for (int s = 1; s < SP; ++s)
+          if (s0 + s < S)
+            acc[c] = __fadd_rn(acc[c], rn<bf16>(max_nan(m[s][c], 0.f)));
+        if (last) acc[c] = rn<bf16>(acc[c]);
       }
-  }
-  bool use_fma = nd_exact;
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      use_fma = use_fma && exact_factor(w0[s][c]) &&
-                exact_factor(w1[s][c]) && exact_factor(w2[s][c]);
-  for (int p = pl; p < np; p += lanes) {
-    float m[S][C];
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-#pragma unroll
-      for (int c = 0; c < C; ++c) m[s][c] = -INFINITY;
-    if (use_fma)
-      surface_max<S, C, true>(s_nd + p * K, K, w0, w1, w2, m);
-    else
-      surface_max<S, C, false>(s_nd + p * K, K, w0, w1, w2, m);
-    float acc[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      acc[c] = rn<bf16>(max_nan(m[0][c], 0.f));
-#pragma unroll
-      for (int s = 1; s < S; ++s)
-        acc[c] = __fadd_rn(acc[c], rn<bf16>(max_nan(m[s][c], 0.f)));
-      acc[c] = rn<bf16>(acc[c]);
+      if (C == 2)
+        *(float2*)dst = make_float2(acc[0], acc[C - 1]);
+      else
+        dst[0] = acc[0];
     }
-    float* dst = out + ((p0 + p) * streams + st) * O + o0;
-    if (C == 2)
-      *(float2*)dst = make_float2(acc[0], acc[C - 1]);
-    else
-      dst[0] = acc[0];
   }
 }
 
@@ -527,7 +536,12 @@ table_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // in order s = 0..S-1, the plain version's order. theta is contracted
 // into FMAs: it moves theta by ~1 fp32 ulp, far inside the tolerances
 // (1e-4 fp32, 2e-2 bf16, of max|ref|), and saves two of the ~9 issue
-// slots per element, the other bound of this pass.
+// slots per element, the other bound of this pass. The relu and the max
+// propagate NaN (max.NaN), as torch.relu and torch.maximum do. S is
+// compiled in up to 8 (SC = S: a runtime S costs registers, and with them
+// spills under the 64-register cap); SC = 0 takes any S at run time. The
+// thread layout limits S*O to AGG_THREADS 16-byte chunks (4096 bf16 or
+// 2048 fp32 values).
 // ---------------------------------------------------------------------------
 #define AGG_U 4          // slots whose row loads are in flight together
 #define AGG_PTS 8        // points per block
@@ -550,13 +564,14 @@ __device__ __forceinline__ void unpack16(const uint4& v, float (&f)[4]) {
   f[3] = __uint_as_float(v.w);
 }
 
-template <typename T, int S>
+template <typename T, int SC>
 __global__ void __launch_bounds__(AGG_THREADS, 2)
 linear_agg_kernel(const int* __restrict__ idx, const T* __restrict__ nd,
                   const float* __restrict__ dirs, const T* __restrict__ table,
                   float* __restrict__ out, long long points, int N, int M,
-                  int K, int streams, int O, int pc) {
+                  int K, int streams, int s_rt, int O, int pc) {
   constexpr int C = 16 / sizeof(T);
+  const int S = SC > 0 ? SC : s_rt;
   extern __shared__ __align__(16) float agg_smem[];
   const int so = S * O, oc = O / C, per = S * oc;
   const int tid = threadIdx.x;
@@ -617,7 +632,7 @@ linear_agg_kernel(const int* __restrict__ idx, const T* __restrict__ nd,
 #pragma unroll
             for (int c = 0; c < C; ++c) {
               const float th = fmaf(n2, d2[c], fmaf(n1, d1[c], n0 * d0[c]));
-              m[c] = fmaxf(m[c], fmaxf(th, 0.f) * f[c]);
+              m[c] = max_nan(m[c], max_nan(th, 0.f) * f[c]);
             }
           }
         }
@@ -651,71 +666,267 @@ linear_agg_kernel(const int* __restrict__ idx, const T* __restrict__ nd,
 
 // ---------------------------------------------------------------------------
 // Wide-table aggregate (kernel 5), one stream, d = 3 or 9.
-// out[n, o] = sum_s max_k relu(<nd[n, k], dirs[:, s*O + o]>) * F[idx[n, k], s*O + o]
+// out[p, o] = sum_s max_k relu(<nd[p, k], dirs[:, s*O + o]>)
+//                           * F[b, idx[p, k], s*O + o]
 // with the support table F [B, M, S*O] given (the wide ConvLayer computes
-// it with one matmul). Replaces pallas_gcn.py:_agg_kernel, which reads a
-// pre-gathered [B, N, K, S*O] table; here the block gathers rows of F by
-// idx, as linear_agg_kernel reads rows of its table.
-// One block per (point tile, batch element), thread o keeps its D*S
-// direction weights (63 floats at D=9, S=7) and S running maxima in
-// registers. Arithmetic follows the plain version op for op: in T = bf16
-// every product, sum, theta, product with F and the support sum is
-// rounded to bf16 as PyTorch's eager bf16 ops round them (rn<T>); in fp32
-// nothing is rounded. Bound on the card by the fp32 issue rate
-// (K*S*(2D+2) operations per output, with bf16 rounding about twice that)
-// and by the table rows, read K times, mostly from L2 (one batch
-// element's table is under 2 MB at the profiler's shape).
+// it with one matmul and passes a view of it: rows may be strided).
+// Replaces pallas_gcn.py:_agg_kernel, which reads a pre-gathered
+// [B, N, K, S*O] table; here the block gathers rows of F by idx.
+//
+// Everything before the support sum is per table column c = s*O + o, so a
+// thread owns 16 bytes of the S*O row wherever they fall: 8 bf16 or 4 fp32
+// columns, with their D direction weights in registers (at D = 9 in bf16,
+// 36 bf16x2 registers). A point's row is then read by neighbouring threads
+// in whole 16-byte loads (64 threads at S*O = 512 in bf16, 112 at 896), and
+// WIDE_U slots' loads are issued before any is used. A block stages its
+// tile of points' idx and nd once in shared memory (nd read as it comes,
+// fp32 or bf16, and rounded there: the wrapper casts nothing), writes each
+// point's column maxima to shared memory and sums the supports from there
+// in order, ((m0 + m1) + m2) + ..., rounded per add in bf16.
+//
+// Numerics are the plain version's, op for op (aggregate_plain): in bf16
+// each product and sum of theta, the relu, the product with F and the max
+// run as packed bf16x2 instructions (mul.rn, add.rn, max.NaN), which round
+// as PyTorch's fp32-then-bf16 eager ops do (a product of two bf16 values is
+// exact in fp32, and fp32 then bf16 is an innocuous double rounding for +
+// and x); the explicit .rn keeps the compiler from fusing them into FMAs.
+// In fp32 nothing is rounded and nothing is contracted (__fmul_rn,
+// __fadd_rn). The relu is max.NaN with +0, so NaN propagates as through
+// torch.relu and torch.maximum; a theta of -0 comes out of it as +0
+// (torch.relu keeps -0; the values compare equal).
+//
+// What bounds it: gathering K table rows per point, mostly from L2 (one
+// batch element's table is 1.8 MB at the profiler's shape, 587 MB of row
+// reads in all), and the packed issue rate (~2D + 2 bf16x2 instructions a
+// column pair a slot). At the full FusionNet's fm_4 (2048 points) the
+// tile is small enough that the grid fills the 132 SMs.
 // ---------------------------------------------------------------------------
-template <typename T, int S, int D>
-__global__ void agg_kernel(const int* __restrict__ idx,
-                           const T* __restrict__ nd, const T* __restrict__ dirs,
-                           const T* __restrict__ feats,
-                           float* __restrict__ out, int N, int M, int K,
-                           int O, int pts) {
-  const int o = threadIdx.x;
-  if (o >= O) return;
-  const int b = blockIdx.y;
-  const int so = S * O;
-  float w[S][D];
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int d = 0; d < D; ++d) w[s][d] = to_f32(dirs[d * so + s * O + o]);
-  const int n_end = min(N, (blockIdx.x + 1) * pts);
-  for (int n = blockIdx.x * pts; n < n_end; ++n) {
-    const size_t pn = (size_t)b * N + n;
-    float m[S];
-#pragma unroll
-    for (int s = 0; s < S; ++s) m[s] = -INFINITY;
-    for (int k = 0; k < K; ++k) {
-      const int j = idx[pn * K + k];
-      float v[D];
-#pragma unroll
-      for (int d = 0; d < D; ++d) v[d] = to_f32(nd[(pn * K + k) * D + d]);
-      const T* row = feats + ((size_t)b * M + j) * so;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const float th = fmaxf(dot_rn<T, D>(v, w[s]), 0.f);
-        m[s] = fmaxf(m[s], rn<T>(__fmul_rn(th, to_f32(row[s * O + o]))));
-      }
-    }
-    float acc = m[0];
-#pragma unroll
-    for (int s = 1; s < S; ++s) acc = rn<T>(__fadd_rn(acc, m[s]));
-    out[pn * O + o] = acc;
-  }
+#define WIDE_THREADS 256   // at most, per block
+#define WIDE_U 4           // slots whose row loads are in flight together
+#define WIDE_FILL (4 * 132)   // blocks wanted before a lane takes more
+#define WIDE_REPS 4           // points a lane takes at most (if the card
+                              // is full)
+
+__device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
 }
 
-#define GCN_PTS 8
+__device__ __forceinline__ uint32_t bf2_add(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t bf2_max(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// p[i] as fp32, p fp32 or bf16
+__device__ __forceinline__ float ld_f32(const void* p, size_t i, bool bf) {
+  return bf ? __bfloat162float(((const bf16*)p)[i]) : ((const float*)p)[i];
+}
+
+// One thread's 16 bytes of columns: NV registers of V, and the arithmetic.
+template <typename T> struct Wide;
+
+template <> struct Wide<bf16> {
+  typedef uint32_t V;   // two bf16 columns, the lower one in the low half
+  static constexpr int C = 8;
+  static __device__ V mul(V a, V b) { return bf2_mul(a, b); }
+  static __device__ V add(V a, V b) { return bf2_add(a, b); }
+  static __device__ V max(V a, V b) { return bf2_max(a, b); }
+  static __device__ V ninf() { return 0xff80ff80u; }
+  // an nd value as staged in shared memory: bf16, twice
+  static __device__ uint32_t stage(float x) {
+    const uint32_t h = bf16_bits(x);
+    return h | (h << 16);
+  }
+  static __device__ V from_bits(uint32_t u) { return u; }
+  // columns c0, c0 + 1 of row d of dirs, zero past so
+  static __device__ V weight(const void* dirs, bool bf, size_t row, int c,
+                             int so) {
+    const uint32_t lo = c < so ? bf16_bits(ld_f32(dirs, row + c, bf)) : 0u;
+    const uint32_t hi =
+        c + 1 < so ? bf16_bits(ld_f32(dirs, row + c + 1, bf)) : 0u;
+    return lo | (hi << 16);
+  }
+  static __device__ uint32_t bits(V v) { return v; }
+  // columns 2i, 2i + 1 of a chunk, read one value at a time
+  static __device__ V scalar_pair(const bf16* p, int i, int n) {
+    const unsigned short* q = (const unsigned short*)p;
+    const uint32_t lo = 2 * i < n ? q[2 * i] : 0u;
+    const uint32_t hi = 2 * i + 1 < n ? q[2 * i + 1] : 0u;
+    return lo | (hi << 16);
+  }
+  static __device__ void store_scalar(bf16* dst, V v, int i, int n) {
+    unsigned short* q = (unsigned short*)dst;
+    if (2 * i < n) q[2 * i] = (unsigned short)(v & 0xffffu);
+    if (2 * i + 1 < n) q[2 * i + 1] = (unsigned short)(v >> 16);
+  }
+  static __device__ float sum(float a, float b) {
+    return rn<bf16>(__fadd_rn(a, b));
+  }
+};
+
+template <> struct Wide<float> {
+  typedef float V;
+  static constexpr int C = 4;
+  static __device__ V mul(V a, V b) { return __fmul_rn(a, b); }
+  static __device__ V add(V a, V b) { return __fadd_rn(a, b); }
+  static __device__ V max(V a, V b) { return max_nan(a, b); }
+  static __device__ V ninf() { return -INFINITY; }
+  static __device__ uint32_t stage(float x) { return __float_as_uint(x); }
+  static __device__ V from_bits(uint32_t u) { return __uint_as_float(u); }
+  static __device__ V weight(const void* dirs, bool bf, size_t row, int c,
+                             int so) {
+    return c < so ? ld_f32(dirs, row + c, bf) : 0.f;
+  }
+  static __device__ uint32_t bits(V v) { return __float_as_uint(v); }
+  static __device__ V scalar_pair(const float* p, int i, int n) {
+    return i < n ? p[i] : 0.f;
+  }
+  static __device__ void store_scalar(float* dst, V v, int i, int n) {
+    if (i < n) dst[i] = v;
+  }
+  static __device__ float sum(float a, float b) { return __fadd_rn(a, b); }
+};
+
+// VEC: every row chunk is 16 whole, aligned bytes (the wrapper checks the
+// table's base, strides and S*O); else each column is read on its own and
+// the row's last chunk may be short.
+template <typename T, int D, bool VEC>
+__global__ void __launch_bounds__(WIDE_THREADS)
+wide_agg_kernel(const int* __restrict__ idx, const void* __restrict__ nd,
+                const void* __restrict__ dirs, unsigned in_bf16,
+                const T* __restrict__ feats, long long batch_stride,
+                long long row_stride, float* __restrict__ out,
+                long long points, int N, int K, int S, int O, int tile,
+                int pc, int tpp) {
+  typedef Wide<T> W;
+  typedef typename W::V V;
+  constexpr int C = W::C, NV = 4;      // NV registers of V hold C columns
+  constexpr int DP = D == 3 ? 4 : 12;  // staged nd words a slot (uint4s)
+  extern __shared__ __align__(16) uint4 wide_smem[];
+  const int so = S * O, chunks = (so + C - 1) / C;
+  uint4* s_nd = wide_smem;                             // [tile][K][DP/4]
+  int* s_idx = (int*)(s_nd + (size_t)tile * K * (DP / 4));   // [tile][K]
+  T* s_m = (T*)(s_nd + (size_t)tile * K * (DP / 4) +
+                ((size_t)tile * K + 3) / 4);           // [tile][so]
+  const long long p0 = (long long)blockIdx.x * tile;
+  const int np = (int)min((long long)tile, points - p0);
+  const bool nd_bf = in_bf16 & 1, dir_bf = (in_bf16 >> 1) & 1;
+
+  for (int e = threadIdx.x; e < np * K; e += blockDim.x)
+    s_idx[e] = idx[p0 * K + e];
+  {
+    uint32_t* sw = (uint32_t*)s_nd;
+    const size_t e0 = (size_t)p0 * K * D;
+    for (int e = threadIdx.x; e < np * K * D; e += blockDim.x) {
+      const int q = e / D;   // (point, slot) of this value
+      sw[q * DP + (e - q * D)] = W::stage(ld_f32(nd, e0 + e, nd_bf));
+    }
+  }
+  __syncthreads();
+
+  const int pl = threadIdx.x / tpp, jt = threadIdx.x - pl * tpp;
+  for (int j = jt; j < chunks; j += tpp) {
+    const int c0 = j * C, nc = min(C, so - c0);
+    V w[D][NV];
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        w[d][i] = W::weight(dirs, dir_bf, (size_t)d * so,
+                            c0 + i * (C / NV), so);
+    for (int p = pl; p < np; p += pc) {
+      const long long pn = p0 + p;
+      const T* rows = feats + (pn / N) * batch_stride + c0;
+      const int* ip = s_idx + p * K;
+      const uint4* nv = s_nd + (size_t)p * K * (DP / 4);
+      V m[NV];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) m[i] = W::ninf();
+      for (int k0 = 0; k0 < K; k0 += WIDE_U) {
+        V f[WIDE_U][NV];
+#pragma unroll
+        for (int u = 0; u < WIDE_U; ++u) {
+          if (k0 + u < K) {
+            const T* r = rows + (long long)ip[k0 + u] * row_stride;
+            if (VEC) {
+              const uint4 v = __ldg((const uint4*)r);
+              f[u][0] = W::from_bits(v.x);
+              f[u][1] = W::from_bits(v.y);
+              f[u][2] = W::from_bits(v.z);
+              f[u][3] = W::from_bits(v.w);
+            } else {
+#pragma unroll
+              for (int i = 0; i < NV; ++i)
+                f[u][i] = W::scalar_pair(r, i, nc);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < WIDE_U; ++u) {
+          if (k0 + u >= K) continue;
+          uint32_t n[DP];
+#pragma unroll
+          for (int q = 0; q < DP / 4; ++q) {
+            const uint4 a = nv[(k0 + u) * (DP / 4) + q];
+            n[4 * q] = a.x;
+            n[4 * q + 1] = a.y;
+            n[4 * q + 2] = a.z;
+            n[4 * q + 3] = a.w;
+          }
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+            V th = W::mul(W::from_bits(n[0]), w[0][i]);
+#pragma unroll
+            for (int d = 1; d < D; ++d)
+              th = W::add(th, W::mul(W::from_bits(n[d]), w[d][i]));
+            th = W::max(th, V(0));
+            m[i] = W::max(m[i], W::mul(th, f[u][i]));
+          }
+        }
+      }
+      T* dst = s_m + (size_t)p * so + c0;
+      if (VEC) {
+        *(uint4*)dst = make_uint4(W::bits(m[0]), W::bits(m[1]),
+                                  W::bits(m[2]), W::bits(m[3]));
+      } else {
+#pragma unroll
+        for (int i = 0; i < NV; ++i) W::store_scalar(dst, m[i], i, nc);
+      }
+    }
+  }
+  __syncthreads();
+
+  // the sum over supports, one thread per (point, channel) at a time
+  for (int e = threadIdx.x; e < np * O; e += blockDim.x) {
+    const int p = e / O, o = e - p * O;
+    const T* src = s_m + (size_t)p * so + o;
+    float acc = to_f32(src[0]);
+    for (int s = 1; s < S; ++s) acc = W::sum(acc, to_f32(src[s * O]));
+    out[(p0 + p) * O + o] = acc;
+  }
+}
 
 template <int C>
 static int launch_surface(const SurfStreams& in, unsigned bf16_mask,
                           float* out, long long points, int K, int streams,
                           int S, int O, cudaStream_t stream) {
   typedef void (*surf_fn)(SurfStreams, unsigned, float*, long long, int, int,
-                          int);
+                          int, int);
   surf_fn fn;
-  switch (S) {
+  const int passes = (S + 7) / 8;
+  switch ((S + passes - 1) / passes) {   // supports a pass
     case 1: fn = surface_kernel<1, C>; break;
     case 2: fn = surface_kernel<2, C>; break;
     case 3: fn = surface_kernel<3, C>; break;
@@ -739,7 +950,7 @@ static int launch_surface(const SurfStreams& in, unsigned bf16_mask,
   dim3 grid((unsigned)((points + SURF_PTS - 1) / SURF_PTS), streams,
             (oc + ocb - 1) / ocb);
   fn<<<grid, lanes * ocb, smem, stream>>>(in, bf16_mask, out, points, K,
-                                          streams, O);
+                                          streams, S, O);
   return pose_last_error();
 }
 
@@ -754,7 +965,7 @@ extern "C" int pose_gcn_surface(const void* nd0, const void* nd1,
                                 long long points, int K, int streams, int S,
                                 int O, cudaStream_t stream) {
   if (points < 1 || K < 1 || K > 128 || streams < 1 ||
-      streams > SURF_MAX_STREAMS || O < 1)
+      streams > SURF_MAX_STREAMS || S < 1 || O < 1)
     return POSE_UNSUPPORTED;
   const SurfStreams in = {{nd0, nd1, nd2, nd3}, {dirs0, dirs1, dirs2, dirs3}};
   if (O % 2 == 0)
@@ -822,7 +1033,7 @@ static int launch_linear(const int* idx, const void* nd, const void* dirs,
   if (per > AGG_THREADS) return POSE_UNSUPPORTED;
   const int pc = max(1, min(AGG_PTS, 256 / per));   // points at a time
   typedef void (*agg_fn)(const int*, const T*, const float*, const T*, float*,
-                         long long, int, int, int, int, int, int);
+                         long long, int, int, int, int, int, int, int);
   agg_fn fn;
   switch (S) {
     case 1: fn = linear_agg_kernel<T, 1>; break;
@@ -833,7 +1044,7 @@ static int launch_linear(const int* idx, const void* nd, const void* dirs,
     case 6: fn = linear_agg_kernel<T, 6>; break;
     case 7: fn = linear_agg_kernel<T, 7>; break;
     case 8: fn = linear_agg_kernel<T, 8>; break;
-    default: return POSE_UNSUPPORTED;
+    default: fn = linear_agg_kernel<T, 0>;
   }
   const size_t smem = sizeof(float) * (2 * (size_t)pc * so +
                                        AGG_PTS * (size_t)K * 4);
@@ -849,7 +1060,7 @@ static int launch_linear(const int* idx, const void* nd, const void* dirs,
   dim3 grid((unsigned)((points + AGG_PTS - 1) / AGG_PTS), streams);
   fn<<<grid, pc * per, smem, stream>>>(idx, (const T*)nd, (const float*)dirs,
                                        (const T*)table, out, points, N, M, K,
-                                       streams, O, pc);
+                                       streams, S, O, pc);
   return pose_last_error();
 }
 
@@ -860,7 +1071,7 @@ extern "C" int pose_gcn_linear(const int* idx, const void* nd,
                                int cin, int S, int O, int is_bf16,
                                cudaStream_t stream) {
   if (B < 1 || N < 1 || M < 1 || K < 1 || streams < 1 || cin < 1 || O < 1 ||
-      O % 8 || S < 1 || S > 8)
+      O % 8 || S < 1)
     return POSE_UNSUPPORTED;
   if (is_bf16)
     return launch_linear<bf16>(idx, nd, dirs, x, w, bias, table, out, B, N, M,
@@ -871,43 +1082,69 @@ extern "C" int pose_gcn_linear(const int* idx, const void* nd,
 
 template <typename T, int D>
 static int launch_aggregate(const int* idx, const void* nd, const void* dirs,
-                            const void* feats, float* out, int B, int N,
-                            int M, int K, int S, int O, cudaStream_t stream) {
-  dim3 grid((N + GCN_PTS - 1) / GCN_PTS, B);
-  const int threads = (O + 31) / 32 * 32;
-#define AGG5_CASE(SS)                                                      \
-  case SS:                                                                 \
-    agg_kernel<T, SS, D><<<grid, threads, 0, stream>>>(                    \
-        idx, (const T*)nd, (const T*)dirs, (const T*)feats, out, N, M, K,  \
-        O, GCN_PTS);                                                       \
-    break;
-  switch (S) {
-    AGG5_CASE(1) AGG5_CASE(2) AGG5_CASE(3) AGG5_CASE(4)
-    AGG5_CASE(5) AGG5_CASE(6) AGG5_CASE(7) AGG5_CASE(8)
-    default:
-      return POSE_UNSUPPORTED;
+                            unsigned in_bf16, const T* feats,
+                            long long batch_stride, long long row_stride,
+                            float* out, int B, int N, int K, int S, int O,
+                            cudaStream_t stream) {
+  constexpr int C = Wide<T>::C, DP = D == 3 ? 4 : 12;
+  const long long so = (long long)S * O;
+  const long long chunks = (so + C - 1) / C;   // 16-byte chunks of a row
+  const int tpp = chunks < WIDE_THREADS ? (int)chunks : WIDE_THREADS;
+  int pc = max(1, WIDE_THREADS / tpp);   // points at a time
+  const long long points = (long long)B * N;
+  // a lane takes more than one point only once the grid fills the card
+  const long long reps = points / ((long long)pc * WIDE_FILL);
+  int tile = pc * (reps < 1 ? 1 : reps > WIDE_REPS ? WIDE_REPS : (int)reps);
+  auto smem_of = [&](int t) {
+    return 16 * ((size_t)t * K * (DP / 4) + ((size_t)t * K + 3) / 4) +
+           (size_t)t * so * sizeof(T);
+  };
+  while (tile > 1 && smem_of(tile) > 48 * 1024) tile /= 2;
+  pc = min(pc, tile);
+  const size_t smem = smem_of(tile);
+  if (smem > 227 * 1024) return POSE_UNSUPPORTED;
+  const bool vec = so % C == 0 && (row_stride * sizeof(T)) % 16 == 0 &&
+                   (batch_stride * sizeof(T)) % 16 == 0 &&
+                   ((uintptr_t)feats & 15) == 0;
+  auto fn = vec ? wide_agg_kernel<T, D, true> : wide_agg_kernel<T, D, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
   }
-#undef AGG5_CASE
+  fn<<<(unsigned)((points + tile - 1) / tile), pc * tpp, smem, stream>>>(
+      idx, nd, dirs, in_bf16, feats, batch_stride, row_stride, out, points, N,
+      K, S, O, tile, pc, tpp);
   return pose_last_error();
 }
 
+// nd [B, N, K, D] and dirs [D, S*O], fp32 or bf16 (bit 0 of in_bf16: nd is
+// bf16, bit 1: dirs), contiguous; the table's row (b, m) at feats +
+// b * batch_stride + m * row_stride, its S*O columns contiguous, fp32 or
+// bf16 (is_bf16), which sets the arithmetic.
 extern "C" int pose_gcn_aggregate(const int* idx, const void* nd,
-                                  const void* dirs, const void* feats,
-                                  float* out, int B, int N, int M, int K,
-                                  int D, int S, int O, int is_bf16,
-                                  cudaStream_t stream) {
-  if (B < 1 || N < 1 || M < 1 || K < 1 || O < 1 || O > 1024 || S < 1 ||
-      S > 8)
+                                  const void* dirs, unsigned in_bf16,
+                                  const void* feats, long long batch_stride,
+                                  long long row_stride, float* out, int B,
+                                  int N, int K, int D, int S, int O,
+                                  int is_bf16, cudaStream_t stream) {
+  if (B < 1 || N < 1 || K < 1 || O < 1 || S < 1 || (D != 3 && D != 9))
     return POSE_UNSUPPORTED;
-  if (D == 3)
-    return is_bf16 ? launch_aggregate<bf16, 3>(idx, nd, dirs, feats, out, B,
-                                               N, M, K, S, O, stream)
-                   : launch_aggregate<float, 3>(idx, nd, dirs, feats, out, B,
-                                                N, M, K, S, O, stream);
-  if (D == 9)
-    return is_bf16 ? launch_aggregate<bf16, 9>(idx, nd, dirs, feats, out, B,
-                                               N, M, K, S, O, stream)
-                   : launch_aggregate<float, 9>(idx, nd, dirs, feats, out, B,
-                                                N, M, K, S, O, stream);
-  return POSE_UNSUPPORTED;
+  if (is_bf16)
+    return D == 3 ? launch_aggregate<bf16, 3>(idx, nd, dirs, in_bf16,
+                                              (const bf16*)feats, batch_stride,
+                                              row_stride, out, B, N, K, S, O,
+                                              stream)
+                  : launch_aggregate<bf16, 9>(idx, nd, dirs, in_bf16,
+                                              (const bf16*)feats, batch_stride,
+                                              row_stride, out, B, N, K, S, O,
+                                              stream);
+  return D == 3 ? launch_aggregate<float, 3>(idx, nd, dirs, in_bf16,
+                                             (const float*)feats, batch_stride,
+                                             row_stride, out, B, N, K, S, O,
+                                             stream)
+                : launch_aggregate<float, 9>(idx, nd, dirs, in_bf16,
+                                             (const float*)feats, batch_stride,
+                                             row_stride, out, B, N, K, S, O,
+                                             stream);
 }

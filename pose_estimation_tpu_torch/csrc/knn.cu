@@ -36,10 +36,13 @@
 //      (distance, index) order, compared lexicographically, so equal
 //      distances go to the lower index, the stable sort's rule: rank r
 //      goes to output slot r - drop.
-// Where ties put more than KNN_CAP keys at or below tau (duplicated
-// points), the block rescans for those queries with a sorted top-kk per
-// lane (lexicographic insertion) and merges the G lists by warp shuffles.
-// The [nq, nk] distance matrix never exists anywhere.
+// Where ties put more than the list's capacity (64 keys, 4 * KM above
+// kk = 16) at or below tau (duplicated points), the block rescans for
+// those queries with a sorted top-KM per lane (lexicographic insertion)
+// and merges the G lists by warp shuffles. The kernel is compiled for
+// KM = 8, 16, 24 and 32 (kk <= KM, a runtime count; M = KM / 8), so it
+// takes kk <= KNN_MAX_KK. The [nq, nk] distance matrix never exists
+// anywhere.
 #include <limits.h>
 
 #include "common.cuh"
@@ -47,8 +50,14 @@
 #define KNN_THREADS 128
 #define KNN_TILE 1024
 #define KNN_FILL (132 * 4 * KNN_THREADS)
-#define KNN_CAP 64       // candidates kept per query
+#define KNN_MAX_KK 32
 #define KNN_QMAX 16      // queries per block at most (G >= 8)
+
+// candidates kept per query for kk <= km: at least kk of them lie at or
+// below tau, and on a point cloud rarely more than 2 kk
+__host__ __device__ constexpr int knn_cap(int km) {
+  return km <= 16 ? 64 : 4 * km;
+}
 
 __device__ __forceinline__ float knn_dist(float qx, float qy, float qz,
                                           float q2, float4 k) {
@@ -83,17 +92,18 @@ __device__ __forceinline__ void insert_sorted(float (&bd)[KK], int (&bi)[KK],
   }
 }
 
-template <int KK>
+template <int KM>   // kk <= KM, a multiple of 8
 __global__ void __launch_bounds__(KNN_THREADS)
 knn_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
-           int* __restrict__ out, int nq, int nk, int drop, int G) {
-  constexpr int M = (KK + 7) / 8;   // G >= 8 lanes hold G * M >= KK values
+           int* __restrict__ out, int nq, int nk, int kk, int drop, int G) {
+  constexpr int M = KM / 8;   // G >= 8 lanes hold G * M >= kk values
+  constexpr int CAP = knn_cap(KM);
   constexpr unsigned FULL = 0xffffffffu;
   extern __shared__ float4 smem[];
   const int cap = min(nk, KNN_TILE);
   float4* tile = smem;                                  // [cap]
   int* cnt = (int*)(tile + cap);                        // [KNN_QMAX]
-  int2* cand = (int2*)(cnt + KNN_QMAX);                 // [qb][KNN_CAP]
+  int2* cand = (int2*)(cnt + KNN_QMAX);                 // [qb][CAP]
   const int qb = KNN_THREADS / G;
   const int b = blockIdx.y;
   const int ql = threadIdx.x / G, lane = threadIdx.x & (G - 1);
@@ -138,11 +148,10 @@ knn_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
     }
   }
 
-  // 2. tau: the KK-th smallest of the group's G * M values, one popped per
+  // 2. tau: the kk-th smallest of the group's G * M values, one popped per
   //    round (the lowest lane among equal heads)
   float tau = INFINITY;
-#pragma unroll
-  for (int r = 0; r < KK; ++r) {
+  for (int r = 0; r < kk; ++r) {
     float v = top[0];
     int w = lane;
     for (int off = G >> 1; off > 0; off >>= 1) {
@@ -168,8 +177,8 @@ knn_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
       const float d = knn_dist(qx, qy, qz, q2, tile[t]);
       if (d <= tau) {
         const int pos = atomicAdd(&cnt[ql], 1);
-        if (pos < KNN_CAP)
-          cand[ql * KNN_CAP + pos] = make_int2(__float_as_int(d), base + t);
+        if (pos < CAP)
+          cand[ql * CAP + pos] = make_int2(__float_as_int(d), base + t);
       }
     }
   }
@@ -177,30 +186,30 @@ knn_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
 
   // 3. rank the candidates
   const int c = cnt[ql];
-  const bool overflow = active && c > KNN_CAP;
-  int* ob = out + ((size_t)b * nq + i) * (KK - drop);
+  const bool overflow = active && c > CAP;
+  int* ob = out + ((size_t)b * nq + i) * (kk - drop);
   if (active && !overflow) {
-    const int2* cq = cand + ql * KNN_CAP;
+    const int2* cq = cand + ql * CAP;
     for (int j = lane; j < c; j += G) {
       const float dj = __int_as_float(cq[j].x);
       const int ij = cq[j].y;
       int rank = 0;
       for (int l = 0; l < c; ++l)
         rank += lex_less(__int_as_float(cq[l].x), cq[l].y, dj, ij);
-      if (rank < KK && rank >= drop) ob[rank - drop] = ij;
+      if (rank < kk && rank >= drop) ob[rank - drop] = ij;
     }
-    // fewer than KK finite distances (non-finite input): index 0
-    for (int r = c + lane; r < KK; r += G)
+    // fewer than kk finite distances (non-finite input): index 0
+    for (int r = c + lane; r < kk; r += G)
       if (r >= drop) ob[r - drop] = 0;
   }
   if (!__syncthreads_or(overflow)) return;
 
-  // ties overflowed a list: a sorted top-KK per lane, then a merge of the
+  // ties overflowed a list: a sorted top-KM per lane, then a merge of the
   // group's G lists (every lane of the warp takes part in the shuffles)
-  float bd[KK];
-  int bi[KK];
+  float bd[KM];
+  int bi[KM];
 #pragma unroll
-  for (int j = 0; j < KK; ++j) {
+  for (int j = 0; j < KM; ++j) {
     bd[j] = INFINITY;
     bi[j] = INT_MAX;
   }
@@ -212,8 +221,7 @@ knn_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
       if (d <= tau) insert_sorted(bd, bi, d, base + t);
     }
   }
-#pragma unroll
-  for (int r = 0; r < KK; ++r) {
+  for (int r = 0; r < kk; ++r) {
     float d = bd[0];
     int id = bi[0];
     for (int off = G >> 1; off > 0; off >>= 1) {
@@ -226,40 +234,38 @@ knn_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
     }
     if (bi[0] == id) {  // this lane held the minimum: pop it
 #pragma unroll
-      for (int j = 0; j + 1 < KK; ++j) {
+      for (int j = 0; j + 1 < KM; ++j) {
         bd[j] = bd[j + 1];
         bi[j] = bi[j + 1];
       }
-      bd[KK - 1] = INFINITY;
-      bi[KK - 1] = INT_MAX;
+      bd[KM - 1] = INFINITY;
+      bi[KM - 1] = INT_MAX;
     }
     if (overflow && lane == 0 && r >= drop) ob[r - drop] = id;
   }
 }
 
-#define KNN_CASE(KK)                                                        \
-  case KK:                                                                  \
-    knn_kernel<KK><<<grid, KNN_THREADS, smem, stream>>>(queries, keys, out, \
-                                                        nq, nk, drop, G);   \
+#define KNN_CASE(KM)                                                      \
+  case KM:                                                                \
+    knn_kernel<KM><<<grid, KNN_THREADS, smem, stream>>>(queries, keys, out, \
+                                                        nq, nk, kk, drop, G); \
     break;
 
 extern "C" int pose_knn(const float* queries, const float* keys, int* out,
                         int batch, int nq, int nk, int kk, int drop,
                         cudaStream_t stream) {
-  if (kk < 1 || kk > 17 || drop < 0 || drop >= kk || kk > nk || nq < 1 ||
-      batch < 1)
+  if (kk < 1 || kk > KNN_MAX_KK || drop < 0 || drop >= kk || kk > nk ||
+      nq < 1 || batch < 1)
     return POSE_UNSUPPORTED;
   int G = 8;
   while (G < 32 && (long long)batch * nq * G < KNN_FILL) G *= 2;
   const int qb = KNN_THREADS / G;
+  const int km = (kk + 7) / 8 * 8;
   dim3 grid((nq + qb - 1) / qb, batch);
   const size_t smem = sizeof(float4) * (size_t)(nk < KNN_TILE ? nk : KNN_TILE) +
-                      sizeof(int) * KNN_QMAX + sizeof(int2) * qb * KNN_CAP;
-  switch (kk) {
-    KNN_CASE(1) KNN_CASE(2) KNN_CASE(3) KNN_CASE(4) KNN_CASE(5) KNN_CASE(6)
-    KNN_CASE(7) KNN_CASE(8) KNN_CASE(9) KNN_CASE(10) KNN_CASE(11)
-    KNN_CASE(12) KNN_CASE(13) KNN_CASE(14) KNN_CASE(15) KNN_CASE(16)
-    KNN_CASE(17)
+                      sizeof(int) * KNN_QMAX + sizeof(int2) * qb * knn_cap(km);
+  switch (km) {
+    KNN_CASE(8) KNN_CASE(16) KNN_CASE(24) KNN_CASE(32)
     default:
       return POSE_UNSUPPORTED;
   }

@@ -42,8 +42,8 @@ _SIGNATURES = {
     "pose_gcn_surface": [_P] * 8 + [_I, _P, _L, _I, _I, _I, _I, _P],
     "pose_gcn_linear": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _P],
-    "pose_gcn_aggregate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _P],
+    "pose_gcn_aggregate": [_P, _P, _P, _I, _P, _L, _L, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _P],
 }
 
 

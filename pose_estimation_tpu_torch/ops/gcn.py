@@ -20,11 +20,15 @@ versions.
                  with several slots' loads in flight
   aggregate      out = sum_s max_k relu(nd . dirs) * F[idx], one stream,
                  D = 3 or 9, the support table F [B, M, S*O] given
-                 kernel csrc/gcn.cu:agg_kernel, replacing
+                 kernel csrc/gcn.cu:wide_agg_kernel, replacing
                  pallas_gcn.py:_agg_kernel (gcn_aggregate of the JAX
                  package): the wide ConvLayer path (the full FusionNet's
-                 fm_4 at S <= 3). Without a table it is one stream of
-                 surface_multi (ConvSurface called without parts).
+                 fm_4 at S <= 3). A thread owns 16 bytes of a table row
+                 and gathers them with 16-byte loads, several slots in
+                 flight; bf16 runs as packed bf16x2 arithmetic. It reads
+                 nd, dirs and a strided table as they come. Without a
+                 table it is one stream of surface_multi (ConvSurface
+                 called without parts).
   aggregate_linear
                  the per-stream narrow form (gcn_aggregate_linear of the
                  JAX package), plain PyTorch: level 2's 9-D narrow
@@ -47,7 +51,9 @@ Numerics (the plain versions define them; the kernels follow them):
            bf16 each product and sum of theta, the product with F and
            each support sum is rounded to bf16.
 Dot products of D terms are summed as ((x + y) + z) + ..., supports in
-order.
+order. relu and the max over k propagate NaN (torch.relu, torch.maximum;
+max.NaN in the kernels). Kernels 2 and 5 equal their plain versions bit
+for bit (a zero's sign aside).
 
 The wrappers take the plain version for CPU tensors only (ordinary
 autograd through it); a CUDA tensor launches the kernel or raises. On the
@@ -62,6 +68,8 @@ from __future__ import annotations
 import torch
 
 from pose_estimation_tpu_torch.ops import _build
+from pose_estimation_tpu_torch.ops.limits import (
+    LINEAR_MAX_ROW_BYTES, SURF_MAX_K, SURF_MAX_STREAMS)
 
 _BF16 = torch.bfloat16
 
@@ -202,10 +210,6 @@ def _recompute_vjp(plain, ts, needs, g):
     return [next(grads) if t.requires_grad else None for t in leaves]
 
 
-# streams per launch of the surface kernel (csrc/gcn.cu SURF_MAX_STREAMS)
-_SURF_MAX_STREAMS = 4
-
-
 def _surface_launch(nds, dirs_list, support_num: int) -> torch.Tensor:
     """The kernel reads each stream's nd and dirs from its own tensor, fp32
     or bf16 as it comes, and rounds them to bf16 itself."""
@@ -218,8 +222,8 @@ def _surface_launch(nds, dirs_list, support_num: int) -> torch.Tensor:
     mask = 0
     for i, (a, d) in enumerate(zip(nds, dirs)):
         mask |= ((a.dtype == _BF16) << i
-                 | (d.dtype == _BF16) << (_SURF_MAX_STREAMS + i))
-    pad = [None] * (_SURF_MAX_STREAMS - streams)
+                 | (d.dtype == _BF16) << (SURF_MAX_STREAMS + i))
+    pad = [None] * (SURF_MAX_STREAMS - streams)
     out = torch.empty((b, n, streams * o), dtype=torch.float32, device=dev)
     rc = _build.launch(_build.library().pose_gcn_surface, dev,
                        *[t.data_ptr() for t in nds], *pad,
@@ -262,11 +266,10 @@ def surface_multi(nds, dirs_list, support_num: int):
     so = dirs_list[0].shape[-1]
     if d != 3 or any(t.shape != nds[0].shape for t in nds):
         raise ValueError("surface_multi: nds must share one [B, N, K, 3] shape")
-    if streams > _SURF_MAX_STREAMS or not 1 <= nds[0].shape[2] <= 128:
+    if (streams > SURF_MAX_STREAMS
+            or not 1 <= nds[0].shape[2] <= SURF_MAX_K):
         raise ValueError(f"surface_multi: the kernel takes at most "
-                         f"{_SURF_MAX_STREAMS} streams and K <= 128")
-    if not 1 <= support_num <= 8:
-        raise ValueError("surface_multi: the kernel takes S <= 8")
+                         f"{SURF_MAX_STREAMS} streams and K <= {SURF_MAX_K}")
     if any(t.shape != (3, so) for t in dirs_list) or so % support_num:
         raise ValueError("surface_multi: dirs must be [3, S*O]")
     for t in list(nds) + list(dirs_list):
@@ -328,10 +331,11 @@ def linear_multi(nds, dirs_list, xs, ws, bs, idx, support_num: int):
         raise ValueError("linear_multi: ws [Cin, S*O], bs [S*O], dirs "
                          "[3, S*O] expected")
     # pass B: one thread per 16 bytes of a table row, at most 512 a block
-    if ((so // support_num) % 8 or not 1 <= support_num <= 8
-            or so * xs[0].element_size() > 512 * 16):
-        raise ValueError("linear_multi: the kernel takes O a multiple of 8, "
-                         "S <= 8 and S*O <= 4096 (bf16) or 2048 (fp32)")
+    most = LINEAR_MAX_ROW_BYTES // xs[0].element_size()
+    if (so // support_num) % 8 or so > most:
+        raise ValueError(f"linear_multi: the kernel takes O a multiple of 8 "
+                         f"and S*O <= {most} in {dt}, got S={support_num}, "
+                         f"S*O={so}")
     out = _LinearMulti.apply(support_num, streams, *ts)
     return _split(out, streams)
 
@@ -384,18 +388,22 @@ def _linear_launch(nds, dirs_list, xs, ws, bs, idx, support_num: int):
 
 
 def _aggregate_launch(nd, dirs, feats, idx, support_num: int):
-    dt = feats.dtype
+    """The kernel reads nd and dirs as they come (fp32 or bf16) and the
+    table through its strides (the wide ConvLayer passes a column slice of
+    X @ W + b), so nothing is cast or copied here."""
     b, n, k, d = nd.shape
-    m, so = feats.shape[1], feats.shape[2]
+    so = feats.shape[2]
     o = so // support_num
-    nd = nd.to(dt).contiguous()
-    dirs = dirs.to(dt).contiguous()
-    feats = feats.contiguous()
+    nd, dirs = nd.contiguous(), dirs.contiguous()
+    if feats.stride(2) != 1:
+        feats = feats.contiguous()
+    mask = (nd.dtype == _BF16) | (dirs.dtype == _BF16) << 1
     out = torch.empty((b, n, o), dtype=torch.float32, device=feats.device)
     rc = _build.launch(
         _build.library().pose_gcn_aggregate, feats.device, idx.data_ptr(),
-        nd.data_ptr(), dirs.data_ptr(), feats.data_ptr(), out.data_ptr(), b,
-        n, m, k, d, support_num, o, 1 if dt == _BF16 else 0)
+        nd.data_ptr(), dirs.data_ptr(), mask, feats.data_ptr(),
+        feats.stride(0), feats.stride(1), out.data_ptr(), b, n, k, d,
+        support_num, o, 1 if feats.dtype == _BF16 else 0)
     _build.check(rc, "pose_gcn_aggregate")
     aggregate.launches += 1
     return out
@@ -447,10 +455,9 @@ def aggregate(nd, dirs, feats, idx, support_num: int) -> torch.Tensor:
     if d not in (3, 9) or nd.shape != (b, n, k, d):
         raise ValueError("aggregate: nd must be [B, N, K, D], D = 3 or 9")
     if (dirs.shape != (d, so) or feats.ndim != 3 or feats.shape[0] != b
-            or feats.shape[2] != so or so % support_num
-            or not 1 <= support_num <= 8 or so // support_num > 1024):
+            or feats.shape[2] != so or so % support_num):
         raise ValueError("aggregate: dirs [D, S*O] and feats [B, M, S*O] "
-                         "with S <= 8 and O <= 1024 expected")
+                         "expected")
     return _Aggregate.apply(support_num, nd, dirs, feats, idx)
 
 

@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from pose_estimation_tpu_torch.ops import _build
+from pose_estimation_tpu_torch.ops.limits import KNN_MAX_KK
 
 
 def sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -79,6 +80,10 @@ def knn(queries: torch.Tensor, keys: torch.Tensor, k: int,
     if keys.shape[0] != b:
         raise ValueError("knn: batch sizes differ")
     kk = k + 1 if exclude_self else k
+    if not 1 <= kk <= min(KNN_MAX_KK, nk):
+        raise ValueError(f"knn: the kernel takes 1 <= k{' + 1' * exclude_self}"
+                         f" <= {KNN_MAX_KK} neighbours and no more than the "
+                         f"{nk} keys, got k={k}")
     out = torch.empty((b, nq, k), dtype=torch.int32, device=queries.device)
     rc = _build.launch(_build.library().pose_knn, queries.device,
                        queries.data_ptr(), keys.data_ptr(), out.data_ptr(),

@@ -16,6 +16,7 @@ from pose_estimation_tpu_torch.configs.schema import Config
 from pose_estimation_tpu_torch.core.solvers.pnp import pnp_ransac
 from pose_estimation_tpu_torch.data.pipeline import denormalize_xyz
 from pose_estimation_tpu_torch.metrics.metric import pose_accuracy
+from pose_estimation_tpu_torch.ops import check_config
 
 
 def region_base_at_choose(out: dict, batch: dict, soft: bool) -> torch.Tensor:
@@ -102,9 +103,18 @@ class EvalStep(InferStep):
         return acc
 
 
+def check_model(model, cfg: Config) -> None:
+    """For a model on a card, raise before the first launch if `cfg` gives
+    a kernel a shape it does not take (ops.check_config)."""
+    if model is not None and next(model.parameters()).is_cuda:
+        check_config(cfg, model.fusion_variant, model.dtype)
+
+
 def build_infer_step(model, cfg: Config, **solver_kw) -> InferStep:
+    check_model(model, cfg)
     return InferStep(model, cfg, **solver_kw)
 
 
 def build_eval_step(model, cfg: Config, **solver_kw) -> EvalStep:
+    check_model(model, cfg)
     return EvalStep(model, cfg, **solver_kw)

@@ -20,6 +20,20 @@ def _params(model: nn.Module) -> dict:
     return {k: p.detach() for k, p in model.named_parameters()}
 
 
+def _check_fits(path: str, own, new) -> None:
+    """Raise ValueError unless `new` has the keys, and tensors of the
+    shapes, that `own` has (nested dicts of tensors and scalars)."""
+    if isinstance(own, dict):
+        if not isinstance(new, dict) or own.keys() != new.keys():
+            raise ValueError(f"{path}: keys differ")
+        for k in own:
+            _check_fits(f"{path}.{k}", own[k], new[k])
+    elif isinstance(own, torch.Tensor) and (
+            not isinstance(new, torch.Tensor) or own.shape != new.shape):
+        raise ValueError(f"{path}: shape {tuple(own.shape)}, checkpoint "
+                         f"{getattr(new, 'shape', type(new).__name__)}")
+
+
 def _to(obj, dev):
     if isinstance(obj, torch.Tensor):
         return obj.to(dev)
@@ -64,6 +78,14 @@ class TrainState:
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> "TrainState":
+        """Load `sd` in place, or raise and change nothing: the shapes of
+        the parameters, the optimizer state and the generator state (a CPU
+        and a CUDA generator's differ) are checked before anything is
+        copied (nn.Module.load_state_dict copies every tensor whose shape
+        fits before it raises on one that does not)."""
+        _check_fits("model", self.model.state_dict(), sd["model"])
+        _check_fits("opt_state", self.opt_state, sd["opt_state"])
+        _check_fits("generator", self.generator.get_state(), sd["generator"])
         self.model.load_state_dict(sd["model"], strict=True)
         self.opt_state = _to(sd["opt_state"],
                              next(self.model.parameters()).device)

@@ -73,6 +73,8 @@ class Trainer:
         self.tx = make_optimizer(
             cfg, total_steps=steps_per_epoch * cfg.train.num_epoch)
         self.train_step = build_train_step(self.model, self.tx, cfg)
+        # on a card this checks cfg against the kernels' limits
+        # (ops.check_config) before anything launches
         self.eval_step = build_eval_step(self.model, cfg)
         self.log = MetricsLogger(log_dir, "train")
         self.eval_log = MetricsLogger(log_dir, "eval")
@@ -84,12 +86,20 @@ class Trainer:
     def init_state(self) -> TrainState:
         """A fresh state (the model's seeded random weights), then the
         latest checkpoint of `resume`, or of this run's own directory,
-        loaded into it when there is one."""
+        loaded into it when there is one. A checkpoint that does not fit
+        the model (another config) is skipped, as the JAX trainer skips
+        it: the run starts from the fresh state, which the failed restore
+        leaves untouched (TrainState.load_state_dict checks before it
+        loads)."""
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         self.state = TrainState.create(self.model, self.tx, gen)
         source = (CheckpointManager(self.resume) if self.resume
                   else self.ckpt)
-        source.restore(self.state)
+        try:
+            source.restore(self.state)
+        except Exception as e:  # incompatible/stale checkpoint: fresh start
+            print(f"[trainer] checkpoint restore failed ({type(e).__name__});"
+                  " starting fresh")
         return self.state
 
     def _to_device(self, batch: dict) -> dict:

@@ -94,12 +94,15 @@ def test_surface_multi_matches_plain(dev, n, s):
     (300, 10, 1, 8, 1), (37, 5, 2, 40, 2), (5, 3, 3, 128, 3),
     (64, 10, 4, 8, 3), (300, 7, 5, 40, 1), (100, 10, 6, 128, 2),
     (33, 10, 7, 128, 3), (70, 4, 8, 40, 3), (50, 6, 3, 5, 2),
-    (40, 9, 2, 600, 4)])
+    (40, 9, 2, 600, 4), (90, 10, 9, 128, 3), (30, 8, 13, 7, 2),
+    (20, 128, 17, 16, 1)])
 def test_surface_multi_is_bit_exact(dev, n, k, s, o, streams):
     """Kernel 2 against surface_multi_plain, bit for bit: N not a multiple
-    of the 64-point tile, S = 1..8, 1-4 streams, O = 8, 40, 128, an odd O
-    (one channel a thread) and O = 600 (more channel groups than a block
-    holds), each stream's nd and dirs in fp32 or bf16 as they come."""
+    of the 64-point tile, S = 1..8 (one pass of supports) and 9, 13, 17
+    (two and three passes), 1-4 streams, O = 8, 40, 128, odd O (one
+    channel a thread), O = 600 (more channel groups than a block holds)
+    and K = 128, the last K taken, each stream's nd and dirs in fp32 or
+    bf16 as they come."""
     nds, dirs, _, _, _, _, _ = _gcn_inputs(dev, n, n, k, s=s, o=o,
                                            streams=streams, seed=n + s)
     for first in (torch.float32, torch.bfloat16):
@@ -142,12 +145,16 @@ def test_surface_multi_on_bf16_rounding_ties(dev):
                                         (3, 40, 16, True),
                                         (130, 1030, 17, False),
                                         (3000, 3000, 10, True),
-                                        (5000, 5000, 4, True)])
+                                        (5000, 5000, 4, True),
+                                        (300, 300, 23, True),
+                                        (40, 1500, 31, True),
+                                        (2000, 2000, 32, False)])
 def test_knn_matches_plain(dev, nq, nk, k, ex):
     """Indices equal to the plain version's: ragged query and key counts,
-    fewer queries than a query's lane group, kk = 1 and 17, more keys than
-    one shared-memory tile, and query counts that give 32, 16 and 8 lanes
-    per query at batch 2."""
+    fewer queries than a query's lane group, kk = 1, 17, 24 and 32 (each
+    of the four compiled list sizes, and the last kk taken), more keys
+    than one shared-memory tile, and query counts that give 32, 16 and 8
+    lanes per query at batch 2."""
     g = torch.Generator(device=dev).manual_seed(1)
     keys = torch.randn((2, nk, 3), generator=g, device=dev)
     q = (keys[:, ::nk // nq][:, :nq].contiguous() if ex
@@ -179,7 +186,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         pointops.knn(pts.double(), pts.double(), 4, True)
     with pytest.raises(ValueError):
-        pointops.knn(pts, pts, 40, True)                   # k+1 > 17
+        pointops.knn(pts, pts, 40, True)                   # k+1 > 32
     with pytest.raises(ValueError):
         pointops.knn(pts, pts.cpu(), 4, True)              # mixed devices
     nds, dirs, xs, ws, bs, idx, s = _gcn_inputs(dev, 16, 16, 4)
@@ -393,26 +400,106 @@ def _agg_inputs(dev, n, m, k, d, s, o, seed=4):
             r(2, m, s * o), idx)
 
 
-@pytest.mark.parametrize("d,n,m,k,s,o", [(3, 300, 200, 10, 7, 128),
-                                         (9, 64, 64, 8, 2, 256),
-                                         (9, 37, 90, 5, 3, 40),
-                                         (3, 5, 7, 1, 1, 1000)])
-def test_aggregate_matches_plain(dev, d, n, m, k, s, o):
-    """Kernel 5 rounds as the plain version does, op for op: the aim is
-    the last bit; at most one bf16 ulp of max|ref| in bf16 and 1e-5 *
-    max(1, max|ref|) in fp32."""
-    nd, dirs, feats, idx = _agg_inputs(dev, n, m, k, d, s, o)
+@pytest.mark.parametrize("d,n,k,s,o", [
+    (3, 300, 10, 7, 128), (9, 64, 8, 2, 256), (9, 37, 5, 3, 40),
+    (3, 5, 1, 1, 1000), (3, 70, 6, 1, 5), (9, 33, 4, 4, 8),
+    (3, 130, 7, 5, 600), (9, 20, 3, 6, 1024), (3, 17, 9, 8, 1100),
+    (9, 41, 8, 9, 40), (3, 50, 10, 3, 256), (9, 1, 2, 2, 3)])
+def test_aggregate_matches_plain(dev, d, n, k, s, o):
+    """Kernel 5 against aggregate_plain, bit for bit, for N not a multiple
+    of the tile, S = 1..9, D = 3 and 9, O = 3, 5, 8, 40, 128, 256, 600,
+    1000, 1024 and 1100 (more 16-byte chunks than a block has threads),
+    fp32 and bf16 tables, nd and dirs each fp32 or bf16, and the table
+    contiguous or a column slice of a wider one, as the wide ConvLayer
+    passes it (16-byte loads where its rows are aligned, else one value at
+    a time); one launch a call."""
+    m = n + 13
+    nd, dirs, feats, idx = _agg_inputs(dev, n, m, k, d, s, o, seed=n + s + o)
+    wide = torch.randn((2, m, (s + 1) * o), device=dev)
     for dt in (torch.float32, torch.bfloat16):
-        f = feats.to(dt)
+        for table in (feats.to(dt), wide.to(dt)[..., o:]):
+            for a, b in ((torch.float32, torch.bfloat16),
+                         (torch.bfloat16, torch.float32)):
+                args = (nd.to(a), dirs.to(b), table, idx, s)
+                gcn.aggregate.launches = 0
+                got = gcn.aggregate(*args)
+                assert gcn.aggregate.launches == 1
+                assert got.shape == (2, n, o) and got.dtype == torch.float32
+                assert torch.equal(got, gcn.aggregate_plain(*args))
+
+
+def _pick(dev, vals, shape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.tensor(vals, device=dev)
+    return v[torch.randint(0, len(vals), shape, generator=g, device=dev)]
+
+
+# bf16 rounding midpoints ((1 + 2^-4)^2 = 1 + 2^-3 + 2^-8, 1 + 2^-8), ±0,
+# subnormal values and products (2^-64 * 2^-64, 3 * 2^-66, 2^-133), a
+# normal value at the edge (1.5 * 2^-126)
+SPECIAL = [0.0, -0.0, 1.0, -1.0, 2.0 ** -4, 1.0 + 2.0 ** -4,
+           -(1.0 + 2.0 ** -4), 1.0 + 2.0 ** -7, 0.5, 2.0 ** -3, -2.0 ** -8,
+           2.0 ** -64, 3 * 2.0 ** -66, -2.0 ** -130, 2.0 ** -133,
+           1.5 * 2.0 ** -126]
+
+
+@pytest.mark.parametrize("d,s,o", [(3, 3, 16), (9, 2, 256), (9, 7, 40)])
+def test_aggregate_rounding_ties_subnormals_and_nans(dev, d, s, o):
+    """nd, dirs and table drawn from SPECIAL: the packed bf16x2 products,
+    sums and maxima round as PyTorch's fp32-then-bf16 ops at ties and
+    below the normal range; then inf in a table row (NaN where theta is
+    0), a NaN nd entry and a NaN direction column give the plain
+    version's NaN positions."""
+    n, m, k = 90, 70, 6
+    g = torch.Generator(device=dev).manual_seed(d + s)
+    idx = torch.randint(0, m, (2, n, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    nd = _pick(dev, SPECIAL, (2, n, k, d), 1)
+    dirs = _pick(dev, SPECIAL, (d, s * o), 2)
+    feats = _pick(dev, SPECIAL, (2, m, s * o), 3)
+    for dt in (torch.float32, torch.bfloat16):
+        got = gcn.aggregate(nd, dirs, feats.to(dt), idx, s)
+        assert torch.equal(got, gcn.aggregate_plain(nd, dirs, feats.to(dt),
+                                                    idx, s))
+    feats[0, idx[0, 5, 1]] = float("inf")
+    feats[1, idx[1, 9, 0], ::3] = -float("inf")
+    nd[1, 20, 2, 1] = float("nan")
+    dirs[0, o + 1] = float("nan")
+    for dt in (torch.float32, torch.bfloat16):
+        got = gcn.aggregate(nd, dirs, feats.to(dt), idx, s)
+        ref = gcn.aggregate_plain(nd, dirs, feats.to(dt), idx, s)
+        assert ref.isnan().any() and ref.isinf().any()
+        torch.testing.assert_close(got, ref, rtol=0, atol=0, equal_nan=True)
+
+
+def test_aggregate_relu_of_negative_zero(dev):
+    """theta = -0 (every product -0), where the kernel's relu is a max.NaN
+    with +0 and torch.relu keeps the sign: the outputs compare equal."""
+    nd = torch.ones((1, 4, 1, 3), device=dev)
+    dirs = torch.full((3, 8), -0.0, device=dev)
+    feats = torch.ones((1, 4, 8), device=dev)
+    idx = torch.zeros((1, 4, 1), dtype=torch.int32, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        got = gcn.aggregate(nd, dirs, feats.to(dt), idx, 1)
+        ref = gcn.aggregate_plain(nd, dirs, feats.to(dt), idx, 1)
+        assert torch.equal(got, ref) and not got.any()
+
+
+def test_aggregate_largest_k(dev):
+    """A tile of one point with K = 3000 slots at D = 9 fits in shared
+    memory and equals the plain version; K = 5000 does not, and the
+    wrapper raises before the launch."""
+    for k, ok in ((3000, True), (5000, False)):
+        nd, dirs, feats, idx = _agg_inputs(dev, 1, 40, k, 9, 8, 1100)
         gcn.aggregate.launches = 0
-        got = gcn.aggregate(nd, dirs, f, idx, s)
-        assert gcn.aggregate.launches == 1
-        ref = gcn.aggregate_plain(nd, dirs, f, idx, s)
-        assert got.shape == (2, n, o) and got.dtype == torch.float32
-        scale = ref.abs().max().item()
-        tol = (2.0 ** -8 * scale if dt == torch.bfloat16
-               else 1e-5 * max(1.0, scale))
-        assert (got - ref).abs().max().item() <= tol
+        if ok:
+            got = gcn.aggregate(nd, dirs, feats, idx, 8)
+            assert torch.equal(got, gcn.aggregate_plain(nd, dirs, feats,
+                                                        idx, 8))
+        else:
+            with pytest.raises(ValueError, match="not supported"):
+                gcn.aggregate(nd, dirs, feats, idx, 8)
+        assert gcn.aggregate.launches == int(ok)
 
 
 def test_aggregate_backward_matches_plain_autograd(dev):
@@ -480,3 +567,125 @@ def test_tiny_full_krrn_launch_counts_and_plain_cpu_parity(dev):
         r = ref[key]
         tol = rtol * max(1.0, r.abs().max().item())
         assert (got[key].cpu() - r).abs().max().item() <= tol, key
+
+
+def _exact_linear_inputs(dev, n, m, k, s, o, cin=12, seed=9):
+    """Kernel 1's inputs from values with few significant bits, so that
+    theta (FMA or not), the table X @ W + b (in any order, in bf16 too)
+    and the products are exact: the kernel and the plain version then
+    agree bit for bit, and NaN where they should."""
+    nds = [_pick(dev, [0.0, 1.0, -1.0, 0.5, -0.5, 0.25], (2, n, k, 3),
+                 seed + i) for i in range(2)]
+    dirs = [_pick(dev, [0.0, 1.0, -0.5, 0.5, -0.25], (3, s * o), seed + 2 + i)
+            for i in range(2)]
+    xs = [_pick(dev, [0.0, 1.0, -1.0, 2.0, 0.5], (2, m, cin), seed + 4 + i)
+          for i in range(2)]
+    ws = [_pick(dev, [0.0, 0.25, -0.5, 0.5, 1.0], (cin, s * o), seed + 6 + i)
+          for i in range(2)]
+    bs = [_pick(dev, [0.0, 0.125, -0.125], (s * o,), seed + 8 + i)
+          for i in range(2)]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, m, (2, n, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    return nds, dirs, xs, ws, bs, idx
+
+
+def test_linear_multi_propagates_nan(dev):
+    """Kernel 1's relu and max over k propagate NaN as the plain
+    version's torch.relu and torch.maximum: an inf in an input row (its
+    table row +-inf, NaN where W is 0, and NaN where theta is 0), a NaN
+    nd entry and a NaN direction column."""
+    s, o = 3, 16
+    nds, dirs, xs, ws, bs, idx = _exact_linear_inputs(dev, 70, 50, 6, s, o)
+    for dt in (torch.float32, torch.bfloat16):
+        x = [t.to(dt) for t in xs]
+        got = gcn.linear_multi(nds, dirs, x, ws, bs, idx, s)
+        for a, r in zip(got, gcn.linear_multi_plain(nds, dirs, x, ws, bs,
+                                                    idx, s)):
+            assert torch.equal(a, r)
+    xs[0][0, idx[0, 4, 1], 3] = float("inf")
+    nds[1][1, 8, 2, 0] = float("nan")
+    dirs[0][2, o + 3] = float("nan")
+    for dt in (torch.float32, torch.bfloat16):
+        x = [t.to(dt) for t in xs]
+        got = gcn.linear_multi(nds, dirs, x, ws, bs, idx, s)
+        ref = gcn.linear_multi_plain(nds, dirs, x, ws, bs, idx, s)
+        assert all(r.isnan().any() for r in ref)
+        for a, r in zip(got, ref):
+            torch.testing.assert_close(a, r, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("dt,s,o,ok", [
+    (torch.bfloat16, 16, 256, True), (torch.bfloat16, 513, 8, False),
+    (torch.float32, 8, 256, True), (torch.float32, 257, 8, False),
+    (torch.bfloat16, 9, 128, True), (torch.float32, 12, 40, True)])
+def test_linear_multi_row_limit(dev, dt, s, o, ok):
+    """Pass B takes S*O up to 512 16-byte chunks (4096 bf16, 2048 fp32
+    values) and any S: the last S*O taken runs and equals the plain
+    version (bit for bit on exact inputs), the first refused raises
+    before any launch."""
+    nds, dirs, xs, ws, bs, idx = _exact_linear_inputs(dev, 40, 30, 5, s, o)
+    x = [t.to(dt) for t in xs]
+    gcn.linear_multi.launches = 0
+    if ok:
+        got = gcn.linear_multi(nds, dirs, x, ws, bs, idx, s)
+        for a, r in zip(got, gcn.linear_multi_plain(nds, dirs, x, ws, bs,
+                                                    idx, s)):
+            assert torch.equal(a, r)
+    else:
+        with pytest.raises(ValueError, match="S\\*O <= "):
+            gcn.linear_multi(nds, dirs, x, ws, bs, idx, s)
+    assert gcn.linear_multi.launches == int(ok)
+
+
+def test_surface_and_knn_limits_raise_before_launch(dev):
+    """The first value past each limit: K = 129 and 5 streams for the
+    surface kernel, 33 neighbours for KNN."""
+    nds, dirs, _, _, _, _, s = _gcn_inputs(dev, 20, 20, 129, streams=1)
+    gcn.surface_multi.launches = pointops.knn.launches = 0
+    with pytest.raises(ValueError, match="K <= 128"):
+        gcn.surface_multi(nds, dirs, s)
+    nds, dirs, _, _, _, _, s = _gcn_inputs(dev, 20, 20, 8, streams=5)
+    with pytest.raises(ValueError, match="at most 4 streams"):
+        gcn.surface_multi(nds, dirs, s)
+    pts = torch.randn((2, 64, 3), device=dev)
+    with pytest.raises(ValueError, match="<= 32 neighbours"):
+        pointops.knn(pts, pts, 32, True)
+    with pytest.raises(ValueError, match="<= 32 neighbours"):
+        pointops.knn(pts, pts, 33, False)
+    assert gcn.surface_multi.launches == pointops.knn.launches == 0
+
+
+def _neighbours(cfg, k):
+    return schema.override(cfg, **{"module.gcn3d": schema.Gcn3dConfig(
+        neighbor_num=k, support_num=cfg.module.gcn3d.support_num)})
+
+
+def test_serving_step_checks_the_config_before_any_launch(dev):
+    """neighbor_num = 31, the last taken: the tiny KRRN on the card runs
+    and matches its CPU forward; 32 raises in build_infer_step, naming
+    the config field, and nothing launches."""
+    from pose_estimation_tpu_torch.serve import build_infer_step
+    rng = np.random.RandomState(0)
+    args = (rng.rand(2, 64, 64, 3).astype(np.float32),
+            (rng.randn(2, 128, 3) * 0.05 + [0, 0, 0.8]).astype(np.float32),
+            rng.randint(0, 64 * 64, (2, 128)).astype(np.int64),
+            np.array([0, 1]))
+    cpu_args = [torch.from_numpy(a) for a in args]
+    cfg = _neighbours(TINY, 31)
+    torch.manual_seed(0)
+    model = KRRN(cfg).eval()
+    with torch.no_grad():
+        ref = model(*cpu_args)
+        model.to(dev)
+        build_infer_step(model, cfg)
+        got = model(*[a.to(dev) for a in cpu_args])
+    r = ref["pred_t"]
+    assert ((got["pred_t"].cpu() - r).abs().max().item()
+            <= 2e-3 * max(1.0, r.abs().max().item()))
+    cfg = _neighbours(TINY, 32)
+    model = KRRN(cfg).to(dev).eval()
+    pointops.knn.launches = 0
+    with pytest.raises(ValueError, match=r"module\.gcn3d\.neighbor_num"):
+        build_infer_step(model, cfg)
+    assert pointops.knn.launches == 0
