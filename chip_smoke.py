@@ -213,6 +213,10 @@ def _cloud(g, b, n, dev):
 KNN_CASES = (("self", 1024, 1024, 10, 1), ("cross", 256, 1024, 4, 4),
              ("self", 256, 256, 10, 1), ("cross", 64, 256, 4, 1),
              ("self", 64, 64, 8, 1))
+# KNN at its limits in the split (no forward's shapes): the largest search
+# at kk = 11 (the forward's), 17 (the most before kk was widened), 24 and
+# 32, on a cloud and on points whose ties overflow every candidate list
+KNN_LIMIT_K = (10, 16, 23, 31)
 
 
 def check_knn(dev, g):
@@ -1067,6 +1071,22 @@ def kernel_split(dev, reps=10):
         cases.append((f"knn {kind} {nq}x{nk} k={k}", calls,
                       lambda a=(q, keys, k): pointops.knn(*a, True),
                       ((("knn_kernel",), 1),)))
+    try:
+        from pose_estimation_tpu_torch.ops.limits import KNN_MAX_KK
+    except ImportError:     # a tree from before the limits module
+        KNN_MAX_KK = 17
+    spread = _cloud(g, BS, 1024, dev)
+    dup = _cloud(g, BS, 4, dev).repeat_interleave(256, dim=1).contiguous()
+    for k in KNN_LIMIT_K:
+        for pts, what in ((spread, "a cloud"),
+                          (dup, "4 points x256, every query rescans")):
+            label = f"knn self 1024x1024 k={k}, {what}"
+            if k + 1 > KNN_MAX_KK:
+                log(f"  split {label}: kk = {k + 1} not taken by this tree")
+                continue
+            cases.append((label, 0,
+                          lambda a=(pts, pts, k): pointops.knn(*a, True),
+                          ((("knn_kernel",), 1),)))
     md = (("min_dists_kernel",), 1)
     t = _cloud(g, BS, 1024, dev)
     maps = [_cloud(g, BS, m, dev) for m in (256, 64)]

@@ -90,7 +90,6 @@ class KRRN(Named):
         fusion_cls, fusion_width = FUSION[fusion_variant]
         m = cfg.module
         self.cfg, self.dtype = cfg, dtype
-        self.fusion_variant = fusion_variant
         num_cls = m.num_cls
         self.mask_outc = m.masknet.out * num_cls + 1
         self.region_outc = cfg.data.num_regions + 1

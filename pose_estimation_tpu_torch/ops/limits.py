@@ -16,10 +16,10 @@ and support count S, with these limits left:
                            512 threads a block
   aggregate (kernel 5)     D = 3 or 9, the JAX ConvLayer's point_dims
 
-`check_config` holds a configuration, with the fusion net and activation
-dtype the model is built with, to the limits it can reach, and raises a
-ValueError that names the limit and the config field. The serving and
-eval steps and the trainer call it for a model on a card.
+`check_config` holds a configuration, and the (S, O, dtype) of the layers
+a model hands linear_multi, to these limits, and raises a ValueError that
+names the limit and the config field. The serving and eval steps and the
+trainer call it (serve.check_model) for a model on a card.
 """
 
 from __future__ import annotations
@@ -31,16 +31,11 @@ SURF_MAX_STREAMS = 4
 SURF_MAX_K = 128
 LINEAR_MAX_ROW_BYTES = 512 * 16
 
-# O of the 3-D narrow ConvLayers each fusion net hands linear_multi
-# (models/fusion.py: the streams' conv1 and conv2, and FusionNet's extra
-# level-1 layers); tests/test_torch_limits.py holds it to the modules
-LINEAR_WIDTHS = {"lite": (128,), "full": (128, 256)}
 
-
-def check_config(cfg, fusion_variant: str = "lite", dtype=None) -> None:
-    """Raise ValueError if a KRRN of `cfg` with this fusion net and
-    activation dtype (default: bf16 when cfg.train.amp) would give a
-    kernel a shape it does not take."""
+def check_config(cfg, linear_layers=()) -> None:
+    """Raise ValueError if `cfg`, or a layer of `linear_layers` ((S, O,
+    dtype) of each layer whose aggregate goes to linear_multi), would give
+    a kernel a shape it does not take."""
     g = cfg.module.gcn3d
     # self searches take neighbor_num + 1 (the point itself comes first);
     # the surface kernel's K is neighbor_num, inside its limit below this
@@ -50,15 +45,15 @@ def check_config(cfg, fusion_variant: str = "lite", dtype=None) -> None:
             f"(csrc/knn.cu) takes at most {KNN_MAX_KK} neighbours a search, "
             f"the point itself included, so neighbor_num <= "
             f"{KNN_MAX_KK - 1}")
-    if dtype is None:
-        dtype = torch.bfloat16 if cfg.train.amp else torch.float32
-    size = torch.finfo(dtype).bits // 8
-    most = LINEAR_MAX_ROW_BYTES // size
-    for o in LINEAR_WIDTHS[fusion_variant]:
-        if g.support_num * o > most:
+    for s, o, dtype in linear_layers:
+        most = LINEAR_MAX_ROW_BYTES // (torch.finfo(dtype).bits // 8)
+        if o % 8:
             raise ValueError(
-                f"module.gcn3d.support_num = {g.support_num}: the fused "
-                f"linear aggregate (csrc/gcn.cu linear_agg_kernel) takes "
-                f"S*O <= {most} in {dtype}, and the {fusion_variant} fusion "
-                f"net's ConvLayers have O = {o}, so support_num <= "
-                f"{most // o}")
+                f"a ConvLayer of width {o}: the fused linear aggregate "
+                f"(csrc/gcn.cu linear_agg_kernel) takes O a multiple of 8")
+        if s * o > most:
+            raise ValueError(
+                f"module.gcn3d.support_num = {s}: the fused linear "
+                f"aggregate (csrc/gcn.cu linear_agg_kernel) takes S*O <= "
+                f"{most} in {dtype}, and a ConvLayer has O = {o}, so "
+                f"support_num <= {most // o}")

@@ -16,6 +16,7 @@ from pose_estimation_tpu_torch.configs.schema import Config
 from pose_estimation_tpu_torch.core.solvers.pnp import pnp_ransac
 from pose_estimation_tpu_torch.data.pipeline import denormalize_xyz
 from pose_estimation_tpu_torch.metrics.metric import pose_accuracy
+from pose_estimation_tpu_torch.models.gcn3d import ConvLayer
 from pose_estimation_tpu_torch.ops import check_config
 
 
@@ -103,11 +104,22 @@ class EvalStep(InferStep):
         return acc
 
 
+def linear_layers(model) -> list:
+    """(S, O, dtype) of each narrow 3-D ConvLayer of `model`: the layers
+    whose aggregates the fusion nets hand linear_multi."""
+    found = {(m.support_num, m.out_channel, m.dtype): None
+             for m in model.modules()
+             if isinstance(m, ConvLayer) and m.narrow
+             and m.directions.shape[0] == 3}
+    return list(found)
+
+
 def check_model(model, cfg: Config) -> None:
-    """For a model on a card, raise before the first launch if `cfg` gives
-    a kernel a shape it does not take (ops.check_config)."""
+    """For a model on a card, raise before the first launch if `cfg` or
+    the model's layers give a kernel a shape it does not take
+    (ops.check_config)."""
     if model is not None and next(model.parameters()).is_cuda:
-        check_config(cfg, model.fusion_variant, model.dtype)
+        check_config(cfg, linear_layers(model))
 
 
 def build_infer_step(model, cfg: Config, **solver_kw) -> InferStep:

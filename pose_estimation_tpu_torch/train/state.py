@@ -78,19 +78,18 @@ class TrainState:
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> "TrainState":
-        """Load `sd` in place, or raise and change nothing: the shapes of
-        the parameters, the optimizer state and the generator state (a CPU
-        and a CUDA generator's differ) are checked before anything is
-        copied (nn.Module.load_state_dict copies every tensor whose shape
-        fits before it raises on one that does not)."""
-        _check_fits("model", self.model.state_dict(), sd["model"])
-        _check_fits("opt_state", self.opt_state, sd["opt_state"])
-        _check_fits("generator", self.generator.get_state(), sd["generator"])
+        """Load `sd` in place, or raise and change nothing: its keys, the
+        shapes of the parameters, the optimizer state and the generator
+        state (a CPU and a CUDA generator's differ) are checked, and its
+        scalars read, before anything is copied (nn.Module.load_state_dict
+        copies every tensor whose shape fits before it raises on one that
+        does not)."""
+        _check_fits("state", self.state_dict(), sd)
+        step, best_dis, lr_scale = (int(sd["step"]), float(sd["best_dis"]),
+                                    float(sd["lr_scale"]))
         self.model.load_state_dict(sd["model"], strict=True)
         self.opt_state = _to(sd["opt_state"],
                              next(self.model.parameters()).device)
         self.generator.set_state(sd["generator"].cpu())
-        self.step = int(sd["step"])
-        self.best_dis = float(sd["best_dis"])
-        self.lr_scale = float(sd["lr_scale"])
+        self.step, self.best_dis, self.lr_scale = step, best_dis, lr_scale
         return self

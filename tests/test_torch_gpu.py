@@ -165,16 +165,21 @@ def test_knn_matches_plain(dev, nq, nk, k, ex):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("n", [600, 3000, 5000])
-def test_knn_ties_go_to_the_lower_index(dev, n):
-    """A cloud on a coarse grid with every point twice: many exactly equal
-    distances, which the lanes' merge must hand to the lower index, as
-    the plain version's stable sort does."""
+@pytest.mark.parametrize("n,side", [(600, 4), (3000, 4), (5000, 4),
+                                    (3000, 2)])
+def test_knn_ties_go_to_the_lower_index(dev, n, side):
+    """A cloud on a coarse grid of side**3 positions with every point
+    twice: many exactly equal distances, which the lanes' merge must hand
+    to the lower index, as the plain version's stable sort does. At 8
+    positions each holds ~375 copies, more ties at or below the bound than
+    any candidate list holds (64, 96 or 128 keys for kk <= 16, 24, 32), so
+    every query rescans, at each list size."""
     g = torch.Generator(device=dev).manual_seed(7)
-    keys = torch.randint(0, 4, (2, n, 3), generator=g, device=dev) * 0.25
+    keys = (torch.randint(0, side, (2, n, 3), generator=g, device=dev)
+            * (1.0 / side))
     keys[:, n // 2:] = keys[:, :n // 2]
     for q, ex in ((keys, True), (keys[:, ::3].contiguous(), False)):
-        for k in (1, 10, 16):
+        for k in (1, 10, 16, 23, 31):
             got = pointops.knn(q, keys, k, ex)
             assert torch.equal(got, pointops.knn_plain(q, keys, k, ex))
 

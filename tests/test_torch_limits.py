@@ -4,14 +4,16 @@ configuration to the kernels' limits, naming the config field. All on the
 CPU at the tiny config of the verify recipe; the kernels at each limit's
 edge are in tests/test_torch_gpu.py."""
 
+import os
+
 import pytest
 import torch
 
 from pose_estimation_tpu_torch.configs import schema
 from pose_estimation_tpu_torch.data.synthetic import SyntheticPoseDataset
-from pose_estimation_tpu_torch.models import gcn3d
 from pose_estimation_tpu_torch.models.fusion import FusionNet, FusionNetLite
-from pose_estimation_tpu_torch.ops import check_config, limits
+from pose_estimation_tpu_torch.ops import check_config
+from pose_estimation_tpu_torch.serve import linear_layers
 
 torch.set_num_threads(1)
 
@@ -34,16 +36,30 @@ def _trainer(cfg, log_dir):
     return Trainer(cfg, ds, log_dir=str(log_dir), device="cpu")
 
 
-def test_stale_checkpoint_starts_fresh(tmp_path, capsys):
-    """A checkpoint of another config (backbone_outc 16 against 8: the same
-    keys, other shapes) is skipped with the JAX trainer's message, and the
-    state is the seeded fresh one: nn.Module.load_state_dict would have
-    copied the tensors whose shapes fit before raising."""
+def _drop_step(ckpt):
+    path = os.path.join(ckpt.directory, str(ckpt.latest_step()), "state.pt")
+    sd = torch.load(path, weights_only=False)
+    del sd["step"]
+    torch.save(sd, path)
+
+
+@pytest.mark.parametrize("case", ["other_config", "missing_step"])
+def test_stale_checkpoint_starts_fresh(tmp_path, capsys, case):
+    """A checkpoint that does not fit is skipped with the JAX trainer's
+    message, and the state is the seeded fresh one. other_config: another
+    backbone_outc (16 against 8: the same keys, other shapes), where
+    nn.Module.load_state_dict would have copied the tensors whose shapes
+    fit before raising. missing_step: this config's tensors without the
+    step, where reading the step after the copy would keep the weights."""
     tr = _trainer(TINY, tmp_path / "run")
     tr.init_state()
     tr.train_epoch(0, steps=1)
     tr.ckpt.save(tr.state.step, tr.state)
-    other = schema.override(TINY, **{"module.backbone_outc": 8})
+    other = TINY
+    if case == "other_config":
+        other = schema.override(TINY, **{"module.backbone_outc": 8})
+    else:
+        _drop_step(tr.ckpt)
     capsys.readouterr()
     stale = _trainer(other, tmp_path / "run").init_state()
     assert ("[trainer] checkpoint restore failed (ValueError); starting "
@@ -76,11 +92,22 @@ def test_checkpoint_of_the_same_config_still_resumes(tmp_path, capsys):
         assert torch.equal(a, b), k
 
 
+FUSION = {"lite": FusionNetLite, "full": FusionNet}
+
+
+def _layers(variant, cfg, dtype):
+    """serve.linear_layers of the fusion net a KRRN of `cfg` builds."""
+    g = cfg.module.gcn3d
+    return linear_layers(FUSION[variant](g.neighbor_num, g.support_num,
+                                         dtype=dtype))
+
+
 @pytest.mark.parametrize("variant", ["lite", "full"])
 @pytest.mark.parametrize("amp", [True, False])
 def test_shipped_and_tiny_configs_are_inside_every_limit(variant, amp):
+    dtype = torch.bfloat16 if amp else torch.float32
     for cfg in (schema.Config(), TINY):
-        check_config(schema.override(cfg, **{"train.amp": amp}), variant)
+        check_config(cfg, _layers(variant, cfg, dtype))
 
 
 def _gcn(cfg, **kw):
@@ -103,24 +130,31 @@ def test_neighbor_num_edge():
 def test_support_num_edge(variant, dtype, last):
     """The fused linear aggregate takes S*O <= 4096 bf16 or 2048 fp32
     values; the full FusionNet's level 1 has O = 256, the lite one's
-    O = 128. The model's dtype, not cfg.train.amp, decides."""
-    check_config(_gcn(schema.Config(), support_num=last), variant, dtype)
+    O = 128. The layers' dtype, not cfg.train.amp, decides."""
+    cfg = _gcn(schema.Config(), support_num=last)
+    check_config(cfg, _layers(variant, cfg, dtype))
+    cfg = _gcn(schema.Config(), support_num=last + 1)
     with pytest.raises(ValueError, match=rf"module\.gcn3d\.support_num = "
                        rf"{last + 1}.*support_num <= {last}"):
-        check_config(_gcn(schema.Config(), support_num=last + 1), variant,
-                     dtype)
+        check_config(cfg, _layers(variant, cfg, dtype))
 
 
-@pytest.mark.parametrize("variant,cls", [("lite", FusionNetLite),
-                                         ("full", FusionNet)])
-def test_linear_widths_are_the_fusion_nets(variant, cls):
-    """The widths check_config holds to S*O are those of the 3-D narrow
-    ConvLayers each fusion net hands linear_multi."""
-    net = cls(10, 7)
-    widths = {m.out_channel for m in net.modules()
-              if isinstance(m, gcn3d.ConvLayer) and m.narrow
-              and m.directions.shape[0] == 3}
-    assert widths == set(limits.LINEAR_WIDTHS[variant])
+def test_layer_width_must_be_a_multiple_of_8():
+    check_config(TINY, [(2, 8, torch.float32)])
+    with pytest.raises(ValueError, match=r"width 12.*a multiple of 8"):
+        check_config(TINY, [(2, 12, torch.float32)])
+
+
+@pytest.mark.parametrize("variant,s,widths", [
+    ("lite", 7, [128]), ("full", 7, [128, 256]), ("full", 1, [256])])
+def test_linear_widths_are_the_fusion_nets(variant, s, widths):
+    """The layers check_model holds to S*O are the 3-D narrow ConvLayers
+    each fusion net hands linear_multi; at S = 1 only the full net's
+    128 -> 256 stream layers stay narrow, the others go to the wide-table
+    aggregate."""
+    cfg = _gcn(TINY, support_num=s)
+    assert _layers(variant, cfg, torch.bfloat16) == [
+        (s, o, torch.bfloat16) for o in widths]
 
 
 def test_model_check_waits_for_a_card():
