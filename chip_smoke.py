@@ -57,6 +57,18 @@ Phases (each raises on failure, the script then exits non-zero):
      the plain path) and one train step at bs=8 (launches 3/1/8/2/1; loss
      and gradient norm against the plain versions);
  11. tools/profile_eval in full: every component prints a time;
+ 12. the LineMOD path at full width: a fake BOP tree (2 objects, 24
+     frames each in train_pbr and test, 480x640, depth_scale 0.5) written
+     with OpenCV as the JAX package's writer writes it, the host's ms per
+     frame for dataset[i] + frame_to_sample, the training CLI on it (--dataset
+     linemod --cls_type all, one debug epoch, the shipped config with the
+     pose branch from epoch 0, bs=8: 5 steps and one eval pass), whose
+     launches must be exactly 5 x the train step's + 6 x an eval
+     forward's (phase 7's, plus the ADD(-S) metric's nearest-source
+     call), its frames/s; the CLI's --eval_mode on the test split (6 eval
+     forwards); tools/infer.py --ckpt from that run's checkpoint (32
+     records) and tools/eval_standalone.py (2 batches of train_pbr, as
+     the JAX tool reads it);
 and checks that nothing of JAX or of the JAX package was imported.
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -72,6 +84,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import shutil
 import subprocess
@@ -1189,35 +1202,210 @@ TRAIN_CONFIG = ("schema.override(schema.Config(dataset='synthetic'),\n"
                 "                           **{'train.start_pose_epoch': 0})")
 
 
-def run_train_cli(config_expr=TRAIN_CONFIG):
-    """Phase 8: the training CLI, one debug epoch with the pose branch, on
-    the config `config_expr` builds (the shipped one, the pose branch from
-    epoch 0)."""
-    from pose_estimation_tpu_torch import cli
+def _lines(path):
+    return [json.loads(x) for x in Path(path).read_text().splitlines()]
+
+
+def write_config(config_expr=TRAIN_CONFIG, name="train_config") -> Path:
+    """build/smoke/<name>.py, whose get_config() returns `config_expr`."""
     out_dir = ROOT / "build" / "smoke"
-    run_dir = out_dir / "train_run"
-    shutil.rmtree(run_dir, ignore_errors=True)
     out_dir.mkdir(parents=True, exist_ok=True)
-    cfg_file = out_dir / "train_config.py"
+    cfg_file = out_dir / f"{name}.py"
     cfg_file.write_text(
         "from pose_estimation_tpu_torch.configs import schema\n"
         "from pose_estimation_tpu_torch.configs.schema import (  # noqa\n"
         "    Gcn3dConfig, HeadConfig)\n\n\n"
         f"def get_config():\n    return {config_expr}\n")
+    return cfg_file
+
+
+def run_train_cli(config_expr=TRAIN_CONFIG):
+    """Phase 8: the training CLI, one debug epoch with the pose branch, on
+    the config `config_expr` builds (the shipped one, the pose branch from
+    epoch 0)."""
+    from pose_estimation_tpu_torch import cli
+    run_dir = ROOT / "build" / "smoke" / "train_run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    cfg_file = write_config(config_expr)
     t0 = time.perf_counter()
     cli.main(["--config", str(cfg_file), "--synthetic", "--debug",
               "--epochs", "1", "--frames_per_object", "2",
               "--log_dir", str(run_dir)])
     wall = time.perf_counter() - t0
-    train = [json.loads(x) for x in
-             (run_dir / "train.jsonl").read_text().splitlines()]
-    evals = [json.loads(x) for x in
-             (run_dir / "eval.jsonl").read_text().splitlines()]
+    train, evals = _lines(run_dir / "train.jsonl"), _lines(
+        run_dir / "eval.jsonl")
     log(f"  cli.py: {len(train)} train record(s), first {train[0]}; eval "
         f"{evals[-1]}; {wall:.1f} s")
     if not (train and train[0]["loss_add"] > 0 and evals
             and "add_dis" in evals[-1]):
         raise AssertionError("training CLI wrote no train or eval records")
+
+
+# phase 12: the shipped config (dataset="linemod") on both objects of the
+# tree, the pose branch from epoch 0; the tree at classic LineMOD's frame
+# size
+LINEMOD_CONFIG = ("schema.override(schema.Config(cls_type='all'),\n"
+                  "                           **{'train.start_pose_epoch': 0})")
+BOP_TREE = dict(num_objects=2, frames_per_object=24,
+                splits=("train_pbr", "test"), im_h=480, im_w=640)
+DEBUG_STEPS = 5
+# an eval forward: the serving forward plus the ADD(-S) metric's
+# nearest-source call (metrics.metric.add_metric)
+LITE_EVAL = dict(LITE_SERVE, min_dists=2)
+
+
+def _check_counts(what, counts, times):
+    """counts == the sum over `times` ({path: (n, launches a call)}) of n
+    x launches a call."""
+    want = {k: sum(n * c[k] for n, c in times.values()) for k in LITE_SERVE}
+    formula = " + ".join(f"{n} {p} x {c}" for p, (n, c) in times.items())
+    log(f"  launches over {what}: {counts}; expected {formula} = {want}")
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts} != {want}")
+
+
+def dataset_item_split_ms(ds, i, repeats=5):
+    """Median ms of the two parts of a BOP reader's dataset[i]: OpenCV's
+    decode of the frame's RGB and depth PNGs, and the label splat
+    (render_frame) at the frame's gt pose."""
+    import cv2
+
+    from pose_estimation_tpu_torch.data.synthetic import render_frame
+    sdir, im_id, oid, r, t, k, _ = ds.index[i]
+    rgb_path = str(Path(sdir, "rgb", f"{im_id:06d}.png"))
+    depth_path = str(Path(sdir, "depth", f"{im_id:06d}.png"))
+    times = {"decode rgb": [], "decode depth": [], "splat": []}
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        cv2.cvtColor(cv2.imread(rgb_path), cv2.COLOR_BGR2RGB)
+        t1 = time.perf_counter()
+        h, w = cv2.imread(depth_path, cv2.IMREAD_UNCHANGED).shape
+        t2 = time.perf_counter()
+        render_frame(ds.objects[oid], r, t, k=k, im_h=h, im_w=w)
+        t3 = time.perf_counter()
+        for key, dt in zip(times, (t1 - t0, t2 - t1, t3 - t2)):
+            times[key].append(dt * 1e3)
+    return {key: _median(v) for key, v in times.items()}
+
+
+def run_linemod_cli(config_expr=LINEMOD_CONFIG):
+    """Phase 12: the real-data path at full width. A BOP tree of PNG
+    files written with OpenCV (the readers decode them with OpenCV, as
+    the JAX readers do), then the training CLI on it (--dataset linemod,
+    one debug epoch, the shipped config with the pose branch from epoch
+    0, bs=8), the CLI's eval mode on its test split, the serving CLI
+    from the run's checkpoint and tools/eval_standalone.py. Returns the
+    launch counts of the training CLI's run."""
+
+    import torch
+    from pose_estimation_tpu_torch import cli
+    from pose_estimation_tpu_torch.configs import schema
+    from pose_estimation_tpu_torch.data.batching import frame_to_sample
+    from pose_estimation_tpu_torch.data.linemod import LinemodDataset
+    from pose_estimation_tpu_torch.data.testing import write_fake_bop_tree
+    from pose_estimation_tpu_torch.tools import eval_standalone, infer
+
+    import cv2
+    log(f"  OpenCV {cv2.__version__}")
+    out_dir = ROOT / "build" / "smoke"
+    root = out_dir / "bop"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_fake_bop_tree(str(root), **BOP_TREE)
+    n_png = len(list(root.rglob("*.png")))
+    log(f"  fake BOP tree {BOP_TREE}, depth_scale 0.5: {n_png} PNG files "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    cfg_file = write_config(config_expr, "linemod_config")
+    cfg = cli.load_config(str(cfg_file))
+    bs = cfg.train.batch_size
+    ds = LinemodDataset(str(root), mode="train", cls_type="all", cfg=cfg)
+    gen = torch.Generator().manual_seed(0)
+    t_read = t_sample = 0.0
+    n_host = 8
+    for i in range(-1, n_host):             # frame -1: warm-up, not timed
+        if i == 0:
+            t_read = t_sample = 0.0
+        t0 = time.perf_counter()
+        frame = ds[i]
+        t1 = time.perf_counter()
+        frame_to_sample(frame, ds.objects_by_cls[frame["cls_id"]],
+                        cfg.data.input_size, cfg.data.num_points,
+                        generator=gen)
+        t_sample += time.perf_counter() - t1
+        t_read += t1 - t0
+    log(f"  host data prep, {frame['rgb'].shape[1]}x{frame['rgb'].shape[0]}"
+        f" frames, mean of frames 0-{n_host - 1}: dataset[i] {t_read / n_host * 1e3:.2f}"
+        f" ms + frame_to_sample {t_sample / n_host * 1e3:.2f} ms = "
+        f"{(t_read + t_sample) / n_host * 1e3:.2f} ms per frame")
+    split = dataset_item_split_ms(ds, 0)
+    log("  dataset[0]'s parts, median of 5: " + ", ".join(
+        f"{key} {ms:.2f} ms" for key, ms in split.items()))
+
+    run_dir = out_dir / "linemod_run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    args = ["--config", str(cfg_file), "--dataset", "linemod", "--cls_type",
+            "all", "--dataset_root", str(root)]
+    n_train = len(ds)
+    steps = min(DEBUG_STEPS, n_train // bs)
+    evals = -(-n_train // bs)
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(args + ["--debug", "--epochs", "1", "--log_dir", str(run_dir)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    _check_counts("the training CLI", counts,
+                  {"train steps": (steps, LITE_TRAIN),
+                   "eval forwards": (evals, LITE_EVAL)})
+    train, ev = _lines(run_dir / "train.jsonl"), _lines(run_dir / "eval.jsonl")
+    frames = steps * bs + n_train
+    log(f"  cli.py --dataset linemod: {steps} steps on train_pbr, eval of "
+        f"its {n_train} frames; {wall:.2f} s = {frames / wall:.2f} frames/s "
+        f"(train and eval frames, host data prep and warm-up included); "
+        f"train {train[0]}; eval {ev[-1]}")
+    if not (train and all(math.isfinite(r["loss"]) for r in train)
+            and train[0]["skipped_nonfinite"] == 0
+            and math.isfinite(ev[-1]["add_dis"])
+            and ev[-1]["count"] == n_train):
+        raise AssertionError("training CLI on the LineMOD tree")
+
+    n_test = len(LinemodDataset(str(root), mode="eval", cls_type="all",
+                                cfg=cfg))
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(args + ["--eval_mode", "--log_dir", str(out_dir / "lm_eval")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_counts("cli.py --eval_mode", read_counts(),
+                  {"eval forwards": (-(-n_test // bs), LITE_EVAL)})
+    ev = _lines(out_dir / "lm_eval" / "eval.jsonl")[-1]
+    log(f"  cli.py --eval_mode: {n_test} test frames in {wall:.2f} s = "
+        f"{n_test / wall:.2f} frames/s; {ev}")
+    if ev["count"] != n_test or not math.isfinite(ev["add_dis"]):
+        raise AssertionError(f"eval mode summary {ev}")
+
+    path = out_dir / "lm_poses.jsonl"
+    summary = infer.main(args[:2] + ["--ckpt", str(run_dir / "ckpt"),
+                                     "--dataset_root", str(root),
+                                     "--batch_size", str(BS),
+                                     "--max_batches", "1",
+                                     "--output", str(path)])
+    records = _lines(path)
+    log(f"  tools/infer.py --ckpt: {len(records)} records, {summary}")
+    if len(records) != BS or {r["cls"] for r in records} != {0, 1}:
+        raise AssertionError(f"{len(records)} records, expected {BS}")
+
+    got = eval_standalone.main(args[:2] + ["--ckpt", str(run_dir / "ckpt"),
+                                           "--dataset_root", str(root),
+                                           "--max_batches", "2",
+                                           "--log_dir",
+                                           str(out_dir / "lm_standalone")])
+    log(f"  tools/eval_standalone.py: overall {got['overall']}")
+    if (got["overall"]["count"] != 2 * bs
+            or not set(got["per_object"]) <= {"0", "1"}):
+        raise AssertionError(f"eval_standalone summary {got['overall']}")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -1318,6 +1506,11 @@ def main(argv=None) -> int:
 
     log("[11] tools/profile_eval, in full")
     run_profiler()
+
+    log("[12] the LineMOD path: a BOP tree of PNG files, the training CLI, "
+        "its eval mode, the serving CLI and eval_standalone (schema.Config(),"
+        " bf16, bs=8)")
+    paths["cli_linemod"] = run_linemod_cli()
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax",

@@ -1,13 +1,17 @@
 """Training command line (counterpart of the KRRN half of cli.py).
 
-  python -m pose_estimation_tpu_torch.cli --config cfg.py --synthetic \
-      --debug --epochs 1 --log_dir runs/smoke [--device cpu]
+  python -m pose_estimation_tpu_torch.cli --config cfg.py --dataset linemod \
+      --cls_type all --dataset_root data/linemod --debug --epochs 1 \
+      --log_dir runs/smoke [--device cpu]
 
 `--config` is a preset of configs/schema.py or a .py file whose
-`get_config()` returns a Config. Only the synthetic dataset is ported (the
-LineMOD readers and the transparent trainer are not). The run writes
-log_dir/train.jsonl, log_dir/eval.jsonl and checkpoints under
-log_dir/ckpt; each eval summary is echoed to stdout as a JSON line.
+`get_config()` returns a Config; `--dataset` and `--cls_type` override its
+fields. The datasets are the synthetic fixture (`--synthetic`), LineMOD in
+the BOP or the classic layout and YCB-V (BOP layout) under
+`--dataset_root`; the transparent pipeline and ClearGrasp are not ported.
+The run writes log_dir/train.jsonl, log_dir/eval.jsonl and checkpoints
+under log_dir/ckpt; each eval summary is echoed to stdout as a JSON line.
+`--eval_mode` evaluates the test split once instead of training.
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ import json
 import sys
 
 from pose_estimation_tpu_torch.configs import schema
+
+NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 4, the transparent "
+              "pipeline)")
 
 
 def load_config(spec: str) -> schema.Config:
@@ -32,40 +39,78 @@ def load_config(spec: str) -> schema.Config:
     return factory()
 
 
-def build_dataset(cfg: schema.Config, args):
-    if not (cfg.dataset == "synthetic" or args.synthetic):
-        raise SystemExit(f"dataset {cfg.dataset!r}: only --synthetic is "
-                         "ported")
+def build_dataset(cfg: schema.Config, args, mode: str = "train"):
+    """The dataset `cfg` names, for `mode` ("train", "test" or "eval"):
+    `args` carries synthetic, frames_per_object, dataset_root and
+    background_dir."""
     if cfg.pipeline != "krrn":
-        raise SystemExit(f"pipeline {cfg.pipeline!r}: only krrn is ported")
-    from pose_estimation_tpu_torch.data.synthetic import SyntheticPoseDataset
-    return SyntheticPoseDataset(num_objects=cfg.module.num_cls,
-                                frames_per_object=args.frames_per_object,
-                                num_regions=cfg.data.num_regions)
+        raise SystemExit(f"pipeline {cfg.pipeline!r} {NOT_PORTED}")
+    if cfg.dataset == "synthetic" or getattr(args, "synthetic", False):
+        from pose_estimation_tpu_torch.data.synthetic import (
+            SyntheticPoseDataset)
+        return SyntheticPoseDataset(num_objects=cfg.module.num_cls,
+                                    frames_per_object=args.frames_per_object,
+                                    num_regions=cfg.data.num_regions)
+    if cfg.dataset == "linemod":
+        from pose_estimation_tpu_torch.data.linemod import LinemodDataset
+        return LinemodDataset(args.dataset_root, mode=mode,
+                              cls_type=cfg.cls_type, cfg=cfg)
+    if cfg.dataset == "ycb":
+        from pose_estimation_tpu_torch.data.ycb import YCBVideoDataset
+        # split='train' composes train_real + train_synt with synthetic
+        # background paste (dataset.py:43-50,236-244)
+        split = "train" if mode == "train" else "test"
+        return YCBVideoDataset(args.dataset_root, split=split,
+                               cls_type=cfg.cls_type,
+                               num_regions=cfg.data.num_regions,
+                               background_dir=getattr(
+                                   args, "background_dir", None))
+    if cfg.dataset == "cleargrasp":
+        raise SystemExit(f"dataset 'cleargrasp' {NOT_PORTED}")
+    raise SystemExit(f"unknown dataset: {cfg.dataset}")
 
 
 def main(argv=None):
     p = argparse.ArgumentParser("pose_estimation_tpu_torch")
     p.add_argument("--config", "--config_file", default="lm_v3_1",
                    help="preset name in configs.schema or a .py file")
+    p.add_argument("--dataset", default=None,
+                   help="synthetic, linemod or ycb (overrides the config)")
+    p.add_argument("--cls_type", default=None,
+                   help="one object's name, or all (overrides the config)")
+    p.add_argument("--dataset_root", default="data/linemod")
     p.add_argument("--log_file", "--log_dir", dest="log_dir",
                    default="runs/default")
     p.add_argument("--eval_mode", action="store_true")
     p.add_argument("--resume", "--resume_posenet", dest="resume",
                    default=None, help="checkpoint directory to resume from")
+    p.add_argument("--resume_backbone_only", action="store_true",
+                   help="partial restore: copy the --resume checkpoint's "
+                        "parameters whose name and shape match, start "
+                        "everything else fresh")
     p.add_argument("--debug", action="store_true", help="5-step epochs")
     p.add_argument("--synthetic", action="store_true",
                    help="use the synthetic fixture dataset")
     p.add_argument("--frames_per_object", type=int, default=64)
+    p.add_argument("--background_dir", default=None,
+                   help="background images pasted behind synthetic frames "
+                        "(procedural textures when unset)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; no card raises) or cpu")
     args = p.parse_args(argv)
 
     cfg = load_config(args.config)
-    dataset = build_dataset(cfg, args)
+    if args.dataset:
+        cfg = cfg.replace(dataset=args.dataset)
+    if args.cls_type:
+        cfg = cfg.replace(cls_type=args.cls_type)
+
+    mode = "eval" if args.eval_mode else "train"
+    dataset = build_dataset(cfg, args, mode=mode)
     from pose_estimation_tpu_torch.train.trainer import Trainer
     trainer = Trainer(cfg, dataset, log_dir=args.log_dir, resume=args.resume,
+                      resume_backbone_only=args.resume_backbone_only,
                       device=args.device)
     trainer.init_state()
     if args.eval_mode:

@@ -17,8 +17,12 @@ def crop_affine_coords(center: torch.Tensor, side: torch.Tensor,
           - out_w * 0.5).expand(out_h, out_w)
     dy = (torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
           - out_h * 0.5).expand(out_h, out_w)
-    s = side.to(torch.float32) / float(out_w)
-    return torch.stack([center[0] + dx * s, center[1] + dy * s], -1)
+    s = (side.to(torch.float32) / float(out_w)).double()
+    # center + d * s rounded once, as the jitted JAX program computes it
+    # (XLA contracts the multiply-add into an FMA): the float64 sum of an
+    # exact float32 product, rounded to float32
+    return torch.stack([center[0].double() + dx.double() * s,
+                        center[1].double() + dy.double() * s], -1).float()
 
 
 def _fetch(img, yi, xi, fill):

@@ -5,6 +5,10 @@ parameters, optimizer state, step, generator state, best distance, LR
 scale) and `metrics.json`. The newest `max_to_keep` steps are kept. A
 save writes to a temporary file first, so a step directory never holds a
 half-written state.
+
+`merge_partial_params` is the partial (backbone-only) restore, and
+`save_params_npz` writes a model's parameters in the JAX package's
+params-only .npz layout.
 """
 
 from __future__ import annotations
@@ -13,7 +17,10 @@ import json
 import os
 import shutil
 
+import numpy as np
 import torch
+
+from pose_estimation_tpu_torch.convert import torch_to_flax
 
 
 class CheckpointManager:
@@ -43,12 +50,43 @@ class CheckpointManager:
         for old in self.steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
 
+    def _load(self, step: int) -> dict:
+        return torch.load(os.path.join(self.directory, str(step), "state.pt"),
+                          map_location="cpu", weights_only=True)
+
     def restore(self, state):
         """Load the latest step into `state` in place and return it; None
         when there is no checkpoint."""
         step = self.latest_step()
         if step is None:
             return None
-        sd = torch.load(os.path.join(self.directory, str(step), "state.pt"),
-                        map_location="cpu", weights_only=True)
-        return state.load_state_dict(sd)
+        return state.load_state_dict(self._load(step))
+
+    @torch.no_grad()
+    def merge_partial_params(self, model: torch.nn.Module) -> int:
+        """Partial / backbone-only restore (load_part_module,
+        lib/utils/utlis.py:37-52): read the latest checkpoint with no
+        template (the saved model may differ), copy into `model` every
+        tensor whose name it has with the same shape, leave the rest, and
+        return the count copied (0 with no checkpoint)."""
+        step = self.latest_step()
+        if step is None:
+            return 0
+        saved = self._load(step)["model"]
+        merged = 0
+        for name, t in model.state_dict().items():
+            src = saved.get(name)
+            if src is not None and tuple(src.shape) == tuple(t.shape):
+                t.copy_(src)
+                merged += 1
+        return merged
+
+
+def save_params_npz(path: str, model: torch.nn.Module) -> None:
+    """The model's parameters as one .npz in the flax layout, '/'-joined
+    key paths (convert.torch_to_flax): the file the JAX package's
+    save_params_npz writes, which its load_params_npz, this package's
+    convert.load_params_npz and both tools/infer.py --params read."""
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **torch_to_flax(model.state_dict()))
+    os.replace(tmp, path)

@@ -58,7 +58,8 @@ def _generator(seed: int, stream: int, epoch: int, device="cpu"):
 
 class Trainer:
     def __init__(self, cfg: Config, dataset, log_dir: str = "runs/default",
-                 model=None, resume: str | None = None, device="cuda"):
+                 model=None, resume: str | None = None,
+                 resume_backbone_only: bool = False, device="cuda"):
         """`model` (default: the config's KRRN with seeded random
         weights) is moved to `device`."""
         self.cfg = cfg
@@ -80,6 +81,7 @@ class Trainer:
         self.eval_log = MetricsLogger(log_dir, "eval")
         self.ckpt = CheckpointManager(os.path.join(log_dir, "ckpt"))
         self.resume = resume
+        self.resume_backbone_only = resume_backbone_only
         self.guard = TrainGuard(ckpt_manager=self.ckpt)
         self.state = None
 
@@ -90,9 +92,18 @@ class Trainer:
         the model (another config) is skipped, as the JAX trainer skips
         it: the run starts from the fresh state, which the failed restore
         leaves untouched (TrainState.load_state_dict checks before it
-        loads)."""
+        loads). With `resume_backbone_only`, only the parameters of
+        `resume` whose name and shape match are copied in; the optimizer
+        state, the step and the generator stay fresh."""
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         self.state = TrainState.create(self.model, self.tx, gen)
+        if self.resume and self.resume_backbone_only:
+            # load_part_module equivalent (lib/utils/utlis.py:37-52)
+            n = CheckpointManager(self.resume).merge_partial_params(
+                self.model)
+            print(f"[trainer] partial restore: {n} matching param leaves "
+                  f"from {self.resume}")
+            return self.state
         source = (CheckpointManager(self.resume) if self.resume
                   else self.ckpt)
         try:

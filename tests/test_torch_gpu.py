@@ -694,3 +694,55 @@ def test_serving_step_checks_the_config_before_any_launch(dev):
     with pytest.raises(ValueError, match=r"module\.gcn3d\.neighbor_num"):
         build_infer_step(model, cfg)
     assert pointops.knn.launches == 0
+
+
+CLI_CONFIG = """\
+from pose_estimation_tpu_torch.configs import schema
+
+
+def get_config():
+    return schema.override(schema.Config(), **{
+        "module.num_cls": 2, "data.num_regions": 8, "data.num_points": 128,
+        "data.input_size": 64, "module.backbone_outc": 16,
+        "module.stem_width": 8,
+        "module.hrnet_stages": ((1, 1, (8, 8)), (1, 1, (8, 8, 16)),
+                                (1, 1, (8, 8, 16, 16))),
+        "module.xyznet": schema.HeadConfig(hidden=16),
+        "module.nmlnet": schema.HeadConfig(hidden=16),
+        "module.gcn3d": schema.Gcn3dConfig(neighbor_num=4, support_num=2),
+        "train.amp": False, "train.batch_size": 2,
+        "train.start_pose_epoch": 0})
+"""
+
+
+def test_cli_trains_on_a_linemod_tree_on_the_card(dev, tmp_path):
+    """cli.py --dataset linemod on a fake BOP tree (PNG files written with
+    OpenCV): one debug step (2 train_pbr frames at bs=2) and one
+    eval batch on the card. Launches: the train step's 2 linear, 1
+    surface, 8 KNN and 2 nearest-source (the up-sampling maps, the pose
+    loss), then the eval forward's 2, 1, 8 and 2 (the up-sampling maps,
+    ADD-S)."""
+    import json
+
+    from pose_estimation_tpu_torch import cli
+    from pose_estimation_tpu_torch.data.testing import write_fake_bop_tree
+    root = str(tmp_path / "bop")
+    write_fake_bop_tree(root, num_objects=2, frames_per_object=1)
+    cfg_file = tmp_path / "cfg.py"
+    cfg_file.write_text(CLI_CONFIG)
+    for f in (gcn.linear_multi, gcn.surface_multi, pointops.knn,
+              pointops.nearest_multi, gcn.aggregate):
+        f.launches = 0
+    assert cli.main(["--config", str(cfg_file), "--dataset", "linemod",
+                     "--cls_type", "all", "--dataset_root", root,
+                     "--log_dir", str(tmp_path / "run"), "--debug",
+                     "--epochs", "1"]) == 0
+    assert (gcn.linear_multi.launches, gcn.surface_multi.launches,
+            pointops.knn.launches, pointops.nearest_multi.launches,
+            gcn.aggregate.launches) == (4, 2, 16, 4, 0)
+    train = [json.loads(x) for x in
+             (tmp_path / "run" / "train.jsonl").read_text().splitlines()]
+    evals = [json.loads(x) for x in
+             (tmp_path / "run" / "eval.jsonl").read_text().splitlines()]
+    assert len(train) == 1 and np.isfinite(train[0]["loss"])
+    assert evals[0]["count"] == 2 and np.isfinite(evals[0]["add_dis"])
