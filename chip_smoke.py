@@ -69,6 +69,25 @@ Phases (each raises on failure, the script then exits non-zero):
      forwards); tools/infer.py --ckpt from that run's checkpoint (32
      records) and tools/eval_standalone.py (2 batches of train_pbr, as
      the JAX tool reads it);
+ 13. the training options off in the shipped config: schema.Config() with
+     module.norm="bn", train.refine and Adam (bf16, bs=8, synthetic
+     frames, the pose branch on): one step with the kernels against the
+     plain versions from the same weights, running statistics, Adam state
+     and draws (loss, loss_refine and gradient norm at phase 7's
+     tolerance, the moved statistics within 2e-2); launches per step
+     exactly 2, 1, 8, 3 (the refine loss's ADD(-S) adds a nearest-source
+     call), 0; 20 steps on one batch (finite, none skipped, the last 5
+     losses' mean below the first, every running statistic finite and
+     moved); the step time, its split, the refine term's own time and
+     the device's busy time over 3 profiled steps;
+     the trained model served at bs=32 on its running statistics
+     (launches 2/1/8/1/0, against the plain path, which must leave the
+     statistics as they were); the training CLI with the options and
+     --enable_rot (one debug epoch of 26 synthetic frames: 3 train steps
+     and 4 eval forwards, launches held) and tools/infer.py --ckpt
+     --enable_rot from its checkpoint (32 records); KRRN(enable_rot=True)
+     on the trained weights: pred_r finite and orthonormal within 4 bf16
+     ulps;
 and checks that nothing of JAX or of the JAX package was imported.
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -729,17 +748,18 @@ def check_solver_on_gt(cfg, batch, dev):
 
 
 def serve_full_width(cfg, batch, dev, variant="lite", want=LITE_SERVE,
-                     timing=True):
-    """The `variant` KRRN of `cfg` (bf16, seeded random weights) through
-    serve.build_infer_step: launch counts of one step against `want`,
-    finite outputs, the kernel path against the plain path, and (with
-    `timing`) the stage times."""
+                     timing=True, model=None):
+    """The `variant` KRRN of `cfg` (bf16, seeded random weights), or
+    `model`, through serve.build_infer_step: launch counts of one step
+    against `want`, finite outputs, the kernel path against the plain
+    path, and (with `timing`) the stage times."""
     import torch
     from pose_estimation_tpu_torch.models.krrn import KRRN
     from pose_estimation_tpu_torch.serve import build_infer_step
-    torch.manual_seed(0)
-    model = KRRN(cfg, dtype=torch.bfloat16,
-                 fusion_variant=variant).to(dev).eval()
+    if model is None:
+        torch.manual_seed(0)
+        model = KRRN(cfg, dtype=torch.bfloat16,
+                     fusion_variant=variant).to(dev).eval()
     step = build_infer_step(model, cfg)
     gen = torch.Generator(device=dev)
 
@@ -1408,6 +1428,201 @@ def run_linemod_cli(config_expr=LINEMOD_CONFIG):
     return counts
 
 
+# phase 13: the KRRN training options the shipped config leaves off
+OPTIONS = {"module.norm": "bn", "train.refine": True,
+           "train.optimizer.type": "Adam"}
+OPTIONS_CONFIG = ("schema.override(schema.Config(dataset='synthetic'),\n"
+                  "                           **{**%r,\n"
+                  "                              'train.start_pose_epoch': 0})"
+                  % OPTIONS)
+# the refine loss's ADD(-S) runs the nearest-source kernel once more
+OPTIONS_TRAIN = dict(LITE_TRAIN, min_dists=3)
+OPTIONS_STEPS = 20
+# bf16 carries 8 bits of mantissa: |R^T R - I| of pred_r within 4 ulps of 1
+ORTHO_TOL = 4 * 2.0 ** -7
+
+
+def train_options_full_width(cfg, serve_batch, dev):
+    """Phase 13: schema.Config() with module.norm="bn", train.refine and
+    Adam (bf16, bs=8, synthetic frames, the pose branch on): one step with
+    the kernels against the plain versions from the same weights, running
+    statistics, Adam state and draws; the launches of a step; 20 steps on
+    one batch (finite, none skipped, the mean of the last 5 losses below
+    the first, running statistics finite and moved); the step time, its
+    split and the refine term's own time; serving the trained model at
+    bs=32 on its running statistics; the training CLI with the options
+    and --enable_rot (one debug epoch, launches held) and its checkpoint
+    served through tools/infer.py --ckpt --enable_rot; and
+    KRRN(enable_rot=True)'s pred_r on the trained weights. Returns
+    the launch counts of the train step, the serving step and the
+    rotation model's forward."""
+    import copy
+
+    import torch
+    from pose_estimation_tpu_torch.configs import schema
+    from pose_estimation_tpu_torch.models.krrn import KRRN
+    from pose_estimation_tpu_torch.tools import infer
+    from pose_estimation_tpu_torch.train.optim import Adam
+    from pose_estimation_tpu_torch.train.train_step import build_refine_loss
+    cfg = schema.override(cfg, **OPTIONS)
+    state, step, batch = _train_setup(cfg, dev)
+    model = state.model
+    if not isinstance(step.tx, Adam):
+        raise AssertionError(f"optimizer {type(step.tx).__name__}")
+
+    start = copy.deepcopy((model.state_dict(), state.opt_state))
+
+    def one(plain):
+        model.load_state_dict(start[0])
+        state.generator.manual_seed(1)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            out = step.losses(batch, True, True, state.generator)
+            grads = step.gradients(out)
+        gn = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
+        return (out["loss"].item(), out["loss_refine"].item(), gn.item(),
+                {k: v.clone() for k, v in model.named_buffers()})
+
+    one(False)                                           # warm-up
+    (l_k, r_k, g_k, bufs_k), ms_k = _sync_ms(lambda: one(False))
+    (l_p, r_p, g_p, bufs_p), ms_p = _sync_ms(lambda: one(True))
+    e_buf = max((bufs_k[k] - v).abs().max().item() / max(
+        1.0, v.abs().max().item()) for k, v in bufs_p.items())
+    log(f"  one step's forward + backward from the same weights, running "
+        f"statistics and draws: loss {l_k:.6f} (plain {l_p:.6f}), "
+        f"loss_refine {r_k:.6f} (plain {r_p:.6f}), gradient norm {g_k:.6f} "
+        f"(plain {g_p:.6f}), running statistics max rel |err| {e_buf:.3e}; "
+        f"{ms_k:.1f} ms with the kernels, {ms_p:.1f} ms plain")
+    if not (abs(l_k - l_p) <= 2e-2 * max(1.0, abs(l_p))
+            and abs(r_k - r_p) <= 2e-2 * max(1.0, abs(r_p))
+            and abs(g_k - g_p) <= 2e-2 * g_p and e_buf <= 2e-2):
+        raise AssertionError(f"options step kernel vs plain: loss {l_k} / "
+                             f"{l_p}, refine {r_k} / {r_p}, grad norm {g_k} "
+                             f"/ {g_p}, running statistics {e_buf}")
+    model.load_state_dict(start[0])
+    state.opt_state = copy.deepcopy(start[1])
+    stats0 = {k: v.clone() for k, v in model.named_buffers()}
+
+    counts = _counted_step(state, step, batch, OPTIONS_TRAIN)
+    losses, refine, skipped, times, split = [], [], 0.0, [], []
+    for i in range(OPTIONS_STEPS):
+        if i < OPTIONS_STEPS - 5:
+            m, t = _sync_ms(lambda: step(state, batch, opt_pose=True))
+        else:
+            out, t1 = _sync_ms(lambda: step.losses(batch, True, True,
+                                                   state.generator))
+            grads, t2 = _sync_ms(lambda: step.gradients(out))
+            m, t3 = _sync_ms(lambda: step.apply(state, out, grads))
+            split.append((t1, t2, t3))
+            t = t1 + t2 + t3
+        times.append(t)
+        losses.append(m["loss"].item())
+        refine.append(m["loss_refine"].item())
+        skipped += m["skipped_nonfinite"].item()
+    first, last5 = losses[0], sum(losses[-5:]) / 5
+    moved = sum(not torch.equal(v, stats0[k])
+                for k, v in model.named_buffers())
+    finite = all(torch.isfinite(v).all() for v in model.buffers())
+    log(f"  {OPTIONS_STEPS} steps on one batch: loss {first:.4f} -> mean of "
+        f"the last 5 {last5:.4f}; skipped {skipped:.0f}; loss_refine "
+        f"{refine[0]:.4f} -> {refine[-1]:.4f}; {moved} of "
+        f"{len(stats0)} running statistics moved, all finite: {finite}")
+    if not (all(math.isfinite(x) for x in losses + refine) and skipped == 0
+            and last5 < first and finite and moved == len(stats0)):
+        raise AssertionError(f"options training did not run clean: {losses}"
+                             f", skipped {skipped}, moved {moved}")
+
+    refine_loss = build_refine_loss(cfg)
+    with torch.no_grad():
+        fwd = model(batch["img"], batch["cloud"], batch["choose"],
+                    batch["cls"], opt_pose=True, train=False)
+
+    def refine_term():
+        xyz = fwd["xyz_emb"].detach().requires_grad_()
+        refine_loss(dict(fwd, xyz_emb=xyz), batch,
+                    state.generator).backward()
+
+    refine_term()                                        # warm-up
+    refine_ms = _median([_sync_ms(refine_term)[1] for _ in range(10)])
+    med = _median(times[:-5])
+    fwd_ms, bwd_ms, opt_ms = (_median([p[j] for p in split])
+                              for j in range(3))
+    log(f"  train step (bs={TRAIN_BS}, bf16, BN + refine + Adam), median of "
+        f"{OPTIONS_STEPS - 5}: {med:.2f} ms = {TRAIN_BS / med * 1e3:.2f} "
+        f"samples/s; split (median of 5, synced between stages): forward + "
+        f"loss {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms, guard + Adam "
+        f"{opt_ms:.2f} ms; the refine term alone (forward + backward from "
+        f"xyz_emb, median of 10) {refine_ms:.2f} ms")
+    profile_steps(lambda: step(state, batch), 3)
+
+    before = {k: v.clone() for k, v in model.named_buffers()}
+    serve_counts = serve_full_width(cfg, serve_batch, dev, model=model)
+    if any(not torch.equal(v, before[k]) for k, v in model.named_buffers()):
+        raise AssertionError("serving changed the running statistics")
+
+    from pose_estimation_tpu_torch import cli
+    out_dir = ROOT / "build" / "smoke"
+    run_dir = out_dir / "options_run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    cfg_file = write_config(OPTIONS_CONFIG, "options_config")
+    n_frames, bs = cfg.module.num_cls * 2, cli.load_config(
+        str(cfg_file)).train.batch_size
+    reset_counts()
+    cli.main(["--config", str(cfg_file), "--synthetic", "--debug",
+              "--epochs", "1", "--frames_per_object", "2", "--log_dir",
+              str(run_dir), "--enable_rot"])
+    torch.cuda.synchronize()
+    _check_counts("the training CLI with the options and --enable_rot",
+                  read_counts(),
+                  {"train steps": (min(DEBUG_STEPS, n_frames // bs),
+                                   OPTIONS_TRAIN),
+                   "eval forwards": (-(-n_frames // bs), LITE_EVAL)})
+    train, ev = _lines(run_dir / "train.jsonl"), _lines(run_dir / "eval.jsonl")
+    log(f"  cli.py --enable_rot: train {train[0]}; eval {ev[-1]}")
+    if not (math.isfinite(train[0]["loss_refine"])
+            and train[0]["skipped_nonfinite"] == 0
+            and math.isfinite(ev[-1]["add_dis"])):
+        raise AssertionError("training CLI with the options")
+    path = out_dir / "options_poses.jsonl"
+    summary = infer.main(["--config", str(cfg_file), "--synthetic",
+                          "--frames_per_object", "3", "--num_frames",
+                          str(BS), "--batch_size", str(BS), "--ckpt",
+                          str(run_dir / "ckpt"), "--output", str(path),
+                          "--enable_rot"])
+    records = _lines(path)
+    log(f"  tools/infer.py --ckpt --enable_rot (that run's BN statistics, "
+        f"Adam state and rotation heads restored): {len(records)} records, "
+        f"{summary}")
+    if len(records) != BS or not all(
+            math.isfinite(x) for r in records for x in r["t"]):
+        raise AssertionError(f"{len(records)} records, expected {BS}")
+
+    torch.manual_seed(0)
+    rot = KRRN(cfg, dtype=torch.bfloat16, enable_rot=True).to(dev)
+    fresh = [k for k in rot.state_dict() if ".RotBase_" in k]
+    missing = rot.load_state_dict(model.state_dict(), strict=False)[0]
+    if sorted(missing) != sorted(fresh):
+        raise AssertionError(f"rotation model: {missing[:3]} not loaded")
+    reset_counts()
+    with torch.no_grad():
+        out = rot(serve_batch["img"], serve_batch["cloud"],
+                  serve_batch["choose"], serve_batch["cls"])
+    torch.cuda.synchronize()
+    rot_counts = read_counts()
+    r = out["pred_r"].float()
+    eye = torch.eye(3, device=dev)
+    ortho = (r.transpose(-1, -2) @ r - eye).abs().max().item()
+    det = torch.linalg.det(r)
+    log(f"  KRRN(enable_rot=True) forward (bs={BS}, bf16, the trained "
+        f"model's weights and running statistics, fresh rotation heads): "
+        f"pred_r {tuple(r.shape)}, max |R^T R - I| {ortho:.3e} "
+        f"(tol {ORTHO_TOL:.3e}), det in [{det.min().item():.4f}, "
+        f"{det.max().item():.4f}]; launches {rot_counts}")
+    if not (r.shape == (BS, 3, 3) and torch.isfinite(r).all()
+            and ortho <= ORTHO_TOL and rot_counts == LITE_SERVE):
+        raise AssertionError(f"pred_r: ortho {ortho}, counts {rot_counts}")
+    return counts, serve_counts, rot_counts
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -1511,6 +1726,12 @@ def main(argv=None) -> int:
         "its eval mode, the serving CLI and eval_standalone (schema.Config(),"
         " bf16, bs=8)")
     paths["cli_linemod"] = run_linemod_cli()
+
+    log("[13] the training options off in the shipped config: BatchNorm, "
+        "the refine loss, Adam (schema.Config(), bf16, bs=8), serving on "
+        "the running statistics, the rotation heads")
+    (paths["train_options"], paths["serve_options"],
+     paths["rot_forward"]) = train_options_full_width(cfg, batch, dev)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax",

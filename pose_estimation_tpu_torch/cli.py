@@ -98,6 +98,8 @@ def main(argv=None):
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; no card raises) or cpu")
+    p.add_argument("--enable_rot", action="store_true",
+                   help="KRRN with its two rotation heads (pred_r)")
     args = p.parse_args(argv)
 
     cfg = load_config(args.config)
@@ -111,7 +113,7 @@ def main(argv=None):
     from pose_estimation_tpu_torch.train.trainer import Trainer
     trainer = Trainer(cfg, dataset, log_dir=args.log_dir, resume=args.resume,
                       resume_backbone_only=args.resume_backbone_only,
-                      device=args.device)
+                      device=args.device, enable_rot=args.enable_rot)
     trainer.init_state()
     if args.eval_mode:
         print(json.dumps(trainer.test_epoch(0), indent=2))

@@ -1,16 +1,19 @@
-"""JAX params -> PyTorch state_dict.
+"""JAX params and batch_stats -> PyTorch state_dict, and back.
 
 Input: the flat dict of `save_params_npz` (pose_estimation_tpu/train/
-checkpoint.py): '/'-joined module paths -> numpy arrays. The port's
-modules carry the flax names, so a key maps by joining with '.' and
-converting the leaf by the module it belongs to:
+checkpoint.py): '/'-joined module paths -> numpy arrays, and, for a
+BatchNorm model (module.norm="bn"), its `batch_stats` tree flattened the
+same way. The port's modules carry the flax names, so a key maps by
+joining with '.' and converting the leaf by the module it belongs to:
 
   Conv_*/kernel           HWIO -> OIHW
   ConvTranspose_*/kernel  [kh, kw, in, out] -> flipped in both spatial
                           axes, [in, out, kh, kw] (see layers.ConvTranspose)
   Dense_*/kernel          [in, out] -> [out, in]
-  GroupNorm_*/scale       -> weight
+  GroupNorm_*/scale, BatchNorm_*/scale   -> weight
   bias, directions, weights (3D-GCN raw params)   unchanged
+  BatchNorm_*/mean, BatchNorm_*/var (batch_stats) -> running_mean,
+                          running_var (buffers)
 
 The rule is by key and shape only, so it converts any parameter-shaped
 tree the same way: gradients, Ranger's moments (mu, nu) and Lookahead's
@@ -25,6 +28,9 @@ import numpy as np
 import torch
 
 
+NORMS = ("GroupNorm_", "BatchNorm_")
+
+
 def _leaf(module: str, leaf: str, value: np.ndarray):
     v = np.array(value, dtype=np.float32)
     if leaf == "kernel":
@@ -35,8 +41,10 @@ def _leaf(module: str, leaf: str, value: np.ndarray):
             return "weight", np.ascontiguousarray(v.transpose(3, 2, 0, 1))
         if module.startswith("Dense_"):
             return "weight", np.ascontiguousarray(v.T)
-    elif leaf == "scale" and module.startswith("GroupNorm_"):
+    elif leaf == "scale" and module.startswith(NORMS):
         return "weight", v
+    elif leaf in ("mean", "var") and module.startswith("BatchNorm_"):
+        return f"running_{leaf}", v
     elif leaf in ("bias", "directions", "weights"):
         return leaf, v
     raise KeyError(f"no conversion rule for leaf {leaf!r} of {module!r}")
@@ -51,32 +59,42 @@ def _leaf_back(module: str, name: str, value: np.ndarray):
             return "kernel", value.transpose(2, 3, 1, 0)
         if module.startswith("Dense_"):
             return "kernel", value.T
-        if module.startswith("GroupNorm_"):
+        if module.startswith(NORMS):
             return "scale", value
+    elif name in ("running_mean", "running_var") and module.startswith(
+            "BatchNorm_"):
+        return name[len("running_"):], value
     elif name in ("bias", "directions", "weights"):
         return name, value
     raise KeyError(f"no conversion rule for {name!r} of {module!r}")
 
 
 def torch_to_flax(state_dict: dict) -> dict[str, np.ndarray]:
-    """state_dict -> the '/'-joined flat params of save_params_npz."""
+    """state_dict (or named_parameters) -> '/'-joined flat leaves in the
+    flax layout: the params of save_params_npz, and a BatchNorm's running
+    statistics as its batch_stats leaves `mean` and `var`. The arrays are
+    copies: a later in-place update of the model leaves them as they
+    were."""
     out = {}
     for key, value in state_dict.items():
         parts = key.split(".")
         name, v = _leaf_back(parts[-2] if len(parts) > 1 else "", parts[-1],
                              value.detach().cpu().float().numpy())
-        out["/".join(parts[:-1] + [name])] = np.ascontiguousarray(v)
+        out["/".join(parts[:-1] + [name])] = np.array(v, order="C")
     return out
 
 
 def flax_to_torch(flat: dict[str, np.ndarray],
-                  model: torch.nn.Module | None = None
+                  model: torch.nn.Module | None = None,
+                  batch_stats: dict[str, np.ndarray] | None = None
                   ) -> dict[str, torch.Tensor]:
-    """Convert; with `model`, also hold the result to the model's
+    """Convert the flat params and, for a BatchNorm model, the flat
+    batch_stats; with `model`, also hold the result to the model's
     state_dict key for key and shape: a key the model lacks, a model key
-    left unfilled, or a shape mismatch raises."""
+    left unfilled (a running statistic without `batch_stats` too), or a
+    shape mismatch raises."""
     out = {}
-    for key, value in flat.items():
+    for key, value in {**flat, **(batch_stats or {})}.items():
         parts = key.split("/")
         name, v = _leaf(parts[-2] if len(parts) > 1 else "", parts[-1], value)
         out[".".join(parts[:-1] + [name])] = torch.from_numpy(v)
@@ -93,6 +111,13 @@ def flax_to_torch(flat: dict[str, np.ndarray],
                 raise ValueError(f"{k}: shape {tuple(v.shape)} != "
                                  f"{tuple(want[k].shape)}")
     return out
+
+
+def flax_trees(model: torch.nn.Module) -> tuple[dict, dict]:
+    """The model as the JAX package's two flat trees: (params,
+    batch_stats); batch_stats is empty without BatchNorm."""
+    return (torch_to_flax(dict(model.named_parameters())),
+            torch_to_flax(dict(model.named_buffers())))
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -128,9 +153,11 @@ def flax_axis0_dim(name: str) -> int:
     return 0
 
 
-def load_flax_params(model: torch.nn.Module, flat: dict) -> torch.nn.Module:
+def load_flax_params(model: torch.nn.Module, flat: dict,
+                     batch_stats: dict | None = None) -> torch.nn.Module:
     """Convert strictly and load into `model` (in place)."""
-    model.load_state_dict(flax_to_torch(flat, model), strict=True)
+    model.load_state_dict(flax_to_torch(flat, model, batch_stats),
+                          strict=True)
     return model
 
 

@@ -133,3 +133,59 @@ def pnp_ransac(pw: torch.Tensor, uv: torch.Tensor, k: torch.Tensor,
         "mean_err": mse,
         "num_inliers": final_inl.sum(-1),
     }
+
+
+def _objective_grad(pose6, pw, uv, k, weights):
+    """dE/dpose6 [B, 6] of E = 1/2 sum_i w_i |r_i|^2 per instance, with the
+    graph kept for a second differentiation."""
+    res = reprojection_residuals(pose6, pw, uv, k)
+    res = res.reshape(res.shape[:-1] + (-1, 2))
+    energy = 0.5 * torch.sum(weights[..., None] * res * res)
+    return torch.autograd.grad(energy, pose6, create_graph=True)[0]
+
+
+class _PnPImplicit(torch.autograd.Function):
+    """The identity on pose6 forward; backward by the implicit function
+    theorem at the stationary point g(pose; pw, uv, k) = dE/dpose = 0:
+    v = (H^T)^-1 gbar with H = dg/dpose (the exact Hessian of E, + 1e-6 I),
+    and the gradient to (pw, uv, k) is the VJP of g at -v. pose6 and the
+    weights get none. Every instance's E depends on its own pose only, so
+    the sums over the batch give each instance's derivatives; the Hessian
+    is six reverse passes through the graph of g (double backward)."""
+
+    @staticmethod
+    def forward(ctx, pose6, pw, uv, k, weights):
+        ctx.save_for_backward(pose6, pw, uv, k, weights)
+        return pose6.clone()
+
+    @staticmethod
+    def backward(ctx, gbar):
+        pose6, pw, uv, k, weights = ctx.saved_tensors
+        want = ctx.needs_input_grad[1:4]
+        with torch.enable_grad():
+            p = pose6.detach().requires_grad_()
+            xs = [t.detach().requires_grad_(w)
+                  for t, w in zip((pw, uv, k), want)]
+            g = _objective_grad(p, *xs, weights.detach())
+            hess = torch.stack([torch.autograd.grad(
+                g[..., i].sum(), p, retain_graph=True)[0]
+                for i in range(6)], -2)                    # [B, 6, 6]
+            hess = hess + 1e-6 * torch.eye(6, dtype=p.dtype, device=p.device)
+            v = torch.linalg.solve(hess.transpose(-1, -2),
+                                   gbar[..., None])[..., 0]
+            live = [x for x, w in zip(xs, want) if w]
+            got = iter(torch.autograd.grad(g, live, grad_outputs=-v)
+                       if live else ())
+        return (None, *(next(got) if w else None for w in want), None)
+
+
+def pnp_implicit(pose6, pw, uv, k, weights):
+    """pose6 [B, 6] (a solver's stationary point of the weighted
+    reprojection error) returned as is, with gradients to pw [B, n, 3],
+    uv [B, n, 2] and k [B, 3, 3] through the implicit function theorem
+    (the JAX package's custom_vjp, vmapped over B). Use as
+
+        pose6 = pnp_ransac(pw.detach(), ...)["pose6"]   # under no_grad
+        pose6 = pnp_implicit(pose6, pw, uv, k, weights)
+    """
+    return _PnPImplicit.apply(pose6.detach(), pw, uv, k, weights.detach())

@@ -2,7 +2,8 @@
 
 HRNet backbone, the XYZ/NML decoder heads, the per-class channel select,
 the pixel gather at `choose`, the fusion net (FusionNetLite by default,
-the full FusionNet with fusion_variant="full") and the translation head.
+the full FusionNet with fusion_variant="full"), the translation head and
+(enable_rot) the two rotation heads.
 Inputs and outputs keep the JAX layouts: x [B, H, W, 3] NHWC crop,
 p_emb [B, N, 3] cloud, choose [B, N] flat pixel ids, cls [B]; maps come
 back NHWC.
@@ -19,7 +20,8 @@ from pose_estimation_tpu_torch.models.fusion import FusionNet, FusionNetLite
 from pose_estimation_tpu_torch.models.hrnet import DEFAULT_STAGES, HRNet
 from pose_estimation_tpu_torch.models.layers import (
     Conv, ConvNorm, ConvTransposeNorm, Named, upsample2x)
-from pose_estimation_tpu_torch.models.posenet import PoseNet
+from pose_estimation_tpu_torch.models.posenet import (
+    PoseNet, rot_mat_y_first, vertical_rot_vectors)
 
 
 class XYZHead(Named):
@@ -79,10 +81,11 @@ FUSION = {"lite": (FusionNetLite, 1280), "full": (FusionNet, 1664)}
 class KRRN(Named):
     """KRRN; `dtype` is the activation dtype (bf16 for the shipped
     train.amp=True), params stay fp32. `fusion_variant` "lite" (the
-    default) or "full" picks the fusion net, as the JAX KRRN's field."""
+    default) or "full" picks the fusion net and `enable_rot` adds the
+    rotation heads, as the JAX KRRN's fields."""
 
     def __init__(self, cfg: Config, dtype=torch.float32,
-                 fusion_variant: str = "lite"):
+                 fusion_variant: str = "lite", enable_rot: bool = False):
         super().__init__()
         if fusion_variant not in FUSION:
             raise ValueError(f"fusion_variant {fusion_variant!r}: 'lite' or "
@@ -105,14 +108,18 @@ class KRRN(Named):
         self.fusion_name = f"{fusion_cls.__name__}_0"
         self.child(fusion_cls(m.gcn3d.neighbor_num, m.gcn3d.support_num,
                               m.norm, dtype))
-        self.child(PoseNet(fusion_width + num_cls, False, m.posenet.out_t,
-                           m.norm, dtype))
+        self.child(PoseNet(fusion_width + num_cls, enable_rot,
+                           m.posenet.out_t, m.norm, dtype, m.posenet.outc_r))
 
     def forward(self, x, p_emb, choose, cls, opt_pose: bool = True,
                 train: bool = False, generator=None):
-        """train=True draws the PoolLayer subsamples and the TBase dropout
-        mask from `generator` (flax's 'pool' and 'dropout' streams);
-        train=False is the deterministic eval forward."""
+        """train=True draws the PoolLayer subsamples and the dropout masks
+        from `generator` (flax's 'pool' and 'dropout' streams) and puts the
+        model in training mode, so that BatchNorm normalises with the
+        batch's statistics and moves its running ones; train=False is the
+        deterministic eval forward, on the running statistics."""
+        if self.training != train:
+            super().train(train)
         num_cls = self.cfg.module.num_cls
         gen = generator if train else None
         mo, ro = self.mask_outc, self.region_outc
@@ -124,22 +131,29 @@ class KRRN(Named):
         nml_sel = safe_normalize(_select_class(nml_map, cls, num_cls))
         xyz_emb = _gather_pixels(xyz_sel, choose)
         nml_emb = _gather_pixels(nml_sel, choose)
-        pred_t = t_res = None
+        pred_r = pred_t = t_res = None
         if opt_pose:
             feat = getattr(self, self.fusion_name)(p_emb, xyz_emb, nml_emb,
                                                    gen)
             onehot = F.one_hot(cls.long(), num_cls).to(feat.dtype)
             onehot = onehot[:, None, :].expand(*feat.shape[:2], num_cls)
             feat = torch.cat([feat, onehot], -1)
-            _, _, t_res = self.PoseNet_0(feat, train, gen)
+            green, red, t_res = self.PoseNet_0(feat, train, gen)
             pred_t = torch.mean(p_emb + t_res, dim=1)
+            if green is not None:
+                gv = safe_normalize(green[:, 1:], eps=1e-6)
+                rv = safe_normalize(red[:, 1:], eps=1e-6)
+                cg = torch.sigmoid(green[:, :1])
+                cr = torch.sigmoid(red[:, :1])
+                pred_r = rot_mat_y_first(*vertical_rot_vectors(cr, cg, rv,
+                                                               gv))
         return {
             "xyz": xyz_sel,
             "region": xyz_map[..., mo:mo + ro],
             "mask": xyz_map[..., :mo],
             "normal": nml_sel,
             "xyz_emb": xyz_emb,
-            "pred_r": None,
+            "pred_r": pred_r,
             "pred_t": pred_t,
             "t_res": t_res,
         }

@@ -109,8 +109,9 @@ class Dense(nn.Linear):
 
 class GroupNorm(nn.GroupNorm):
     """flax nn.GroupNorm: eps 1e-6 (torch's default is 1e-5), statistics
-    in fp32, output in the compute dtype. Takes NCHW maps or [B, N, C]
-    point features (normalised over N and the group's channels)."""
+    in fp32, output in the compute dtype. Takes NCHW maps, [B, N, C]
+    point features (normalised over N and the group's channels) or [B, C]
+    vectors."""
 
     def __init__(self, groups, channels, dtype=torch.float32):
         super().__init__(groups, channels, eps=1e-6)
@@ -134,17 +135,62 @@ def _groups(channels: int, groups: int = 32) -> int:
     return g
 
 
+class BatchNorm(nn.Module):
+    """flax nn.BatchNorm(momentum=0.9), eps 1e-5, over the channel axis of
+    NCHW maps (dim 1), [B, N, C] point features or [B, C] vectors (the
+    last dim). In training (`self.training`, which KRRN sets from its
+    `train` argument) it normalises with the batch statistics, in fp32 over
+    every other axis, the variance E[x^2] - E[x]^2 clamped at 0 (flax's
+    fast variance), and moves the running statistics to 0.9 running + 0.1
+    batch with that biased variance; out of training it reads them and
+    changes nothing. The output is in the compute dtype. Unlike
+    nn.BatchNorm2d it keeps no num_batches_tracked and puts no unbiased
+    variance in running_var: the state is flax's params and batch_stats,
+    leaf for leaf (convert.py)."""
+
+    momentum, eps = 0.9, 1e-5
+
+    def __init__(self, channels, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        ch = 1 if x.ndim == 4 else x.ndim - 1
+        axes = [d for d in range(x.ndim) if d != ch]
+        shape = [-1 if d == ch else 1 for d in range(x.ndim)]
+        if self.training:
+            mean = xf.mean(axes)
+            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(self.dtype)
+
+
 class Norm(Named):
-    """'gn' only in the port (the 'bn' parity option is not ported)."""
+    """BatchNorm_0 for 'bn', else GroupNorm_0, as the JAX Norm."""
 
     def __init__(self, channels, kind="gn", groups=32, dtype=torch.float32):
         super().__init__()
-        if kind != "gn":
-            raise NotImplementedError(f"norm={kind!r}: only 'gn' is ported")
-        self.child(GroupNorm(_groups(channels, groups), channels, dtype))
+        norm = (BatchNorm(channels, dtype) if kind == "bn" else
+                GroupNorm(_groups(channels, groups), channels, dtype))
+        self.child(norm)
+        self.name = f"{type(norm).__name__}_0"
 
     def forward(self, x):
-        return self.GroupNorm_0(x)
+        return getattr(self, self.name)(x)
 
 
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:

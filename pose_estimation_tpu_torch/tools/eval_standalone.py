@@ -38,6 +38,9 @@ def main(argv=None):
                         "checkpoint trained with module.xyz_offset_decode")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; no card raises) or cpu")
+    p.add_argument("--enable_rot", action="store_true",
+                   help="KRRN with its two rotation heads (the model the "
+                        "checkpoint was trained with)")
     args = p.parse_args(argv)
 
     from pose_estimation_tpu_torch.cli import build_dataset, load_config
@@ -50,7 +53,8 @@ def main(argv=None):
     ds = build_dataset(cfg, argparse.Namespace(
         synthetic=args.synthetic, dataset_root=args.dataset_root,
         frames_per_object=16))
-    trainer = Trainer(cfg, ds, log_dir=args.log_dir, device=args.device)
+    trainer = Trainer(cfg, ds, log_dir=args.log_dir, device=args.device,
+                      enable_rot=args.enable_rot)
     trainer.init_state()
     if args.ckpt:
         from pose_estimation_tpu_torch.train.checkpoint import (

@@ -2,12 +2,14 @@
 
 Builds KRRN (bf16 activations when the config's train.amp is set), loads
 its weights from this package's checkpoint directory (--ckpt: the latest
-ckpt/<step>/state.pt of a training run), or from a params .npz in the
-flax layout (--params: save_params_npz of either package), or initialises
-them from --seed, runs the two-stage serving program over the dataset the
-config names (mode "eval": the test split) and writes one JSONL record per
-frame (rotation, regressed translation, PnP translation, inlier count,
-reprojection MSE). A summary JSON line goes to stdout.
+ckpt/<step>/state.pt of a training run, with a BatchNorm model's running
+statistics), or from a params .npz in the flax layout (--params:
+save_params_npz of either package; not for module.norm="bn", whose
+statistics it lacks), or initialises them from --seed, runs the two-stage
+serving program over the dataset the config names (mode "eval": the test
+split) and writes one JSONL record per frame (rotation, regressed
+translation, PnP translation, inlier count, reprojection MSE). A summary
+JSON line goes to stdout.
 
 Usage:
   python -m pose_estimation_tpu_torch.tools.infer --config cfg.py \
@@ -31,6 +33,11 @@ def load_weights(model, cfg, args, device):
         raise SystemExit("--params and --ckpt are mutually exclusive; pass "
                          "one source of weights")
     if args.params:
+        if cfg.module.norm == "bn":
+            raise SystemExit(
+                "--params npz carries no batch_stats; a BatchNorm-parity "
+                "config (module.norm='bn') needs the full train state — "
+                "use --ckpt <orbax dir> instead")
         from pose_estimation_tpu_torch.convert import load_params_npz
         load_params_npz(model, args.params)
     elif args.ckpt:
@@ -70,6 +77,9 @@ def main(argv=None, cfg=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; no card raises) or cpu")
+    p.add_argument("--enable_rot", action="store_true",
+                   help="KRRN with its two rotation heads (the model the "
+                        "checkpoint was trained with)")
     args = p.parse_args(argv)
 
     import numpy as np
@@ -90,7 +100,7 @@ def main(argv=None, cfg=None):
 
     torch.manual_seed(args.seed)
     dtype = torch.bfloat16 if cfg.train.amp else torch.float32
-    model = KRRN(cfg, dtype=dtype).to(device)
+    model = KRRN(cfg, dtype=dtype, enable_rot=args.enable_rot).to(device)
     load_weights(model, cfg, args, device)
     model.eval()
     infer_step = build_infer_step(model, cfg)

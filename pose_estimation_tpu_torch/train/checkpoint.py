@@ -1,10 +1,10 @@
-"""Checkpoints of the whole TrainState (counterpart of
-train/checkpoint.py's CheckpointManager): one directory per step under
-`directory`, holding `state.pt` (torch.save of TrainState.state_dict():
-parameters, optimizer state, step, generator state, best distance, LR
-scale) and `metrics.json`. The newest `max_to_keep` steps are kept. A
-save writes to a temporary file first, so a step directory never holds a
-half-written state.
+"""Checkpoints of the whole TrainState (counterpart of train/checkpoint.py's
+CheckpointManager): one directory per step under `directory`, holding
+`state.pt` (torch.save of TrainState.state_dict(): parameters and a
+BatchNorm's running statistics, optimizer state, step, generator state,
+best distance, LR scale) and `metrics.json`. The newest `max_to_keep` steps
+are kept. A save writes to a temporary file first, so a step directory
+never holds a half-written state.
 
 `merge_partial_params` is the partial (backbone-only) restore, and
 `save_params_npz` writes a model's parameters in the JAX package's
@@ -67,26 +67,29 @@ class CheckpointManager:
         """Partial / backbone-only restore (load_part_module,
         lib/utils/utlis.py:37-52): read the latest checkpoint with no
         template (the saved model may differ), copy into `model` every
-        tensor whose name it has with the same shape, leave the rest, and
-        return the count copied (0 with no checkpoint)."""
+        parameter whose name it has with the same shape, leave the rest
+        (a BatchNorm's running statistics stay fresh, as the JAX
+        version merges `params` leaves only), and return the count of
+        parameters copied (0 with no checkpoint)."""
         step = self.latest_step()
         if step is None:
             return 0
         saved = self._load(step)["model"]
         merged = 0
-        for name, t in model.state_dict().items():
+        for name, p in model.named_parameters():
             src = saved.get(name)
-            if src is not None and tuple(src.shape) == tuple(t.shape):
-                t.copy_(src)
+            if src is not None and tuple(src.shape) == tuple(p.shape):
+                p.copy_(src)
                 merged += 1
         return merged
 
 
 def save_params_npz(path: str, model: torch.nn.Module) -> None:
-    """The model's parameters as one .npz in the flax layout, '/'-joined
-    key paths (convert.torch_to_flax): the file the JAX package's
+    """The model's parameters (no running statistics, as the JAX file
+    holds `params` only) as one .npz in the flax layout, '/'-joined key
+    paths (convert.torch_to_flax): the file the JAX package's
     save_params_npz writes, which its load_params_npz, this package's
     convert.load_params_npz and both tools/infer.py --params read."""
     tmp = path + ".tmp.npz"
-    np.savez(tmp, **torch_to_flax(model.state_dict()))
+    np.savez(tmp, **torch_to_flax(dict(model.named_parameters())))
     os.replace(tmp, path)

@@ -1,5 +1,5 @@
-"""Ranger and the LR schedules (counterpart of train/optim.py), written in
-torch.
+"""Ranger, Adam and the LR schedules (counterpart of train/optim.py),
+written in torch.
 
 Parameters, gradients, updates and moments are dicts {name: tensor} in the
 port's layout (a module's named_parameters). `make_optimizer` composes what
@@ -12,6 +12,15 @@ the JAX package chains with optax, in the same order:
   scale_by_learning_rate(schedule)   -lr(count), count before the step
   manual_lr_scale                    x lr_scale (the trainer's decay)
   lookahead(sync 6, alpha 0.5)
+
+Any other `train.optimizer.type` is Adam, as in the JAX package:
+
+  clip_by_global_norm(grad_clip)     when grad_clip > 0
+  scale_by_adam(b1 .9, b2 .999, eps 1e-8 outside the sqrt, eps_root 0)
+  add_decayed_weights(weight_decay)  when weight_decay > 0 (optax.adamw:
+                                     every leaf, before the learning rate)
+  scale_by_learning_rate(schedule)   -lr(count), count before the step
+  manual_lr_scale                    x lr_scale
 
 optax keeps three step counters (RAdam, schedule, Lookahead); they advance
 together on every update, so one `count` stands for them. The count-only
@@ -121,6 +130,16 @@ def centralise(name: str, g: torch.Tensor) -> torch.Tensor:
                       keepdim=True)
 
 
+def clip_by_global_norm(grads: dict, max_norm: float) -> dict:
+    """optax.clip_by_global_norm; max_norm 0 passes the gradients."""
+    if not max_norm:
+        return grads
+    gnorm = torch.sqrt(sum(torch.sum(v * v) for v in grads.values()))
+    keep = gnorm < max_norm
+    return {k: torch.where(keep, v, (v / gnorm) * max_norm)
+            for k, v in grads.items()}
+
+
 class Ranger:
     """The clip + Ranger chain above, optax-style: `init(params)` ->
     state, `update(grads, state, params, lr_scale)` -> (updates, state),
@@ -158,11 +177,7 @@ class Ranger:
     @torch.no_grad()
     def update(self, grads: dict, state: dict, params: dict,
                lr_scale: float = 1.0):
-        if self.grad_clip:
-            gnorm = torch.sqrt(sum(torch.sum(v * v) for v in grads.values()))
-            keep = gnorm < self.grad_clip
-            grads = {k: torch.where(keep, v, (v / gnorm) * self.grad_clip)
-                     for k, v in grads.items()}
+        grads = clip_by_global_norm(grads, self.grad_clip)
         count = state["count"] + 1
         c1, c2, r = self._radam_scalars(count)
         step_size = -self.schedule(state["count"])
@@ -187,13 +202,50 @@ class Ranger:
         return updates, {"count": count, "mu": mu, "nu": nu, "slow": slow}
 
 
-def make_optimizer(cfg, total_steps: int | None = None) -> Ranger:
-    """Ranger with the config's schedule and global-norm clip.
+class Adam:
+    """The clip + Adam(W) chain above, with the Ranger interface. The
+    state is {count, mu, nu}; the bias corrections are float32 on the
+    host, as optax computes them."""
+
+    b1, b2, eps = 0.9, 0.999, 1e-8
+
+    def __init__(self, schedule, weight_decay: float = 0.0,
+                 grad_clip: float = 0.0):
+        self.schedule = schedule
+        self.weight_decay, self.grad_clip = weight_decay, grad_clip
+
+    def init(self, params: dict) -> dict:
+        return {"count": 0,
+                "mu": {k: torch.zeros_like(p) for k, p in params.items()},
+                "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: dict, params: dict,
+               lr_scale: float = 1.0):
+        grads = clip_by_global_norm(grads, self.grad_clip)
+        count = state["count"] + 1
+        f = np.float32
+        c1 = float(f(1) - _pow_f32(self.b1, count))
+        c2 = float(f(1) - _pow_f32(self.b2, count))
+        step_size = -self.schedule(state["count"])
+        mu, nu, updates = {}, {}, {}
+        for k, p in params.items():
+            g = grads[k]
+            mu[k] = (1 - self.b1) * g + self.b1 * state["mu"][k]
+            nu[k] = (1 - self.b2) * (g * g) + self.b2 * state["nu"][k]
+            u = (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + self.eps)
+            if self.weight_decay:
+                u = u + self.weight_decay * p
+            updates[k] = (step_size * u) * lr_scale
+        return updates, {"count": count, "mu": mu, "nu": nu}
+
+
+def make_optimizer(cfg, total_steps: int | None = None):
+    """Ranger when train.optimizer.type is "ranger" (any case), else Adam,
+    with the config's schedule, weight decay and global-norm clip.
     `total_steps` is the flat-anneal horizon (steps per epoch x epochs);
     without it the schedule assumes 1000 steps per epoch."""
     opt = cfg.train.optimizer
-    if opt.type.lower() != "ranger":
-        raise NotImplementedError(f"optimizer {opt.type!r}: only Ranger is "
-                                  "ported")
-    return Ranger(make_schedule(cfg, total_steps),
-                  weight_decay=opt.weight_decay, grad_clip=opt.grad_clip)
+    cls = Ranger if opt.type.lower() == "ranger" else Adam
+    return cls(make_schedule(cfg, total_steps),
+               weight_decay=opt.weight_decay, grad_clip=opt.grad_clip)

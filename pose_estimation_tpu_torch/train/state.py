@@ -1,10 +1,13 @@
-"""Train state (counterpart of train/state.py): the model's parameters, the
-optimizer state, the step count, the generator of the training draws, the
-best eval distance and the manual-decay LR scale, all of which a
-checkpoint carries.
+"""Train state (counterpart of train/state.py): the model's parameters and
+running statistics (a BatchNorm model's batch_stats), the optimizer state,
+the step count, the generator of the training draws, the best eval distance
+and the manual-decay LR scale, all of which a checkpoint carries.
 
 Unlike the JAX package's immutable pytree, the port updates in place:
-`apply_gradients` adds the updates to the module's parameters.
+`apply_gradients` adds the updates to the module's parameters, and a
+training forward moves the running statistics, on a step that the NaN
+guard skips too (the JAX step applies new_batch_stats whatever the guard
+says).
 """
 
 from __future__ import annotations

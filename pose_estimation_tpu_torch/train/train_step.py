@@ -2,8 +2,10 @@
 parallel/train_step.py:29-35,98-173; the multi-GPU step is a later slice).
 
   batch -> (offset-decode target rewrite) -> KRRN forward (train draws
-  from the state's generator) -> krrn_loss -> gradients of every
-  parameter -> NaN guard -> Ranger update, in place.
+  from the state's generator; BatchNorm on the batch's statistics, moving
+  the running ones) -> krrn_loss (+ weight_refine x the differentiable-
+  PnP refine loss with train.refine) -> gradients of every parameter ->
+  NaN guard -> Ranger or Adam update, in place.
 
 The NaN guard is the JAX package's, to the letter: the global gradient
 norm is taken before clipping; when it or the loss is not finite the
@@ -17,7 +19,13 @@ from __future__ import annotations
 import torch
 
 from pose_estimation_tpu_torch.configs.schema import Config
-from pose_estimation_tpu_torch.losses.pose_loss import krrn_loss
+from pose_estimation_tpu_torch.core.geometry.rotations import (
+    axis_angle_to_matrix)
+from pose_estimation_tpu_torch.core.solvers.pnp import (
+    pnp_implicit, pnp_ransac)
+from pose_estimation_tpu_torch.data.pipeline import denormalize_xyz
+from pose_estimation_tpu_torch.losses.pose_loss import krrn_loss, pose_loss
+from pose_estimation_tpu_torch.serve import region_base_at_choose
 from pose_estimation_tpu_torch.train.state import TrainState
 
 
@@ -42,6 +50,44 @@ def offset_targets(batch: dict) -> dict:
     return batch
 
 
+def build_refine_loss(cfg: Config, num_points: int = 128,
+                      num_hypotheses: int = 8):
+    """The train-time differentiable-PnP ADD loss (train.refine):
+    refine_loss(out, batch, generator=None, subset_ids=None) -> 0-d.
+
+    xyz_emb in fp32 (plus the soft region decode under
+    xyz_offset_decode) at `num_points` strided points, denormalised; a
+    PnP-RANSAC solve without gradients (`num_hypotheses` subsets from
+    `generator`, or `subset_ids` [B, H, 6]; inliers at 2 px; 3 LM
+    iterations); pnp_implicit re-attaches the gradient to the points at
+    the solution, weighted by its inliers + 1e-3; then the ADD(-S) loss
+    of that pose against the batch's targets."""
+    offset_decode = cfg.module.xyz_offset_decode
+
+    def refine_loss(out, batch, generator=None, subset_ids=None):
+        xyz_emb = out["xyz_emb"].float()
+        if offset_decode:
+            xyz_emb = xyz_emb + region_base_at_choose(out, batch, soft=True)
+        n = batch["choose"].shape[1]
+        stride = max(n // num_points, 1)
+        sel = torch.arange(num_points, device=xyz_emb.device) * stride % n
+        pw = denormalize_xyz(xyz_emb[:, sel], batch["lf_border"],
+                             batch["extent"])
+        uv = batch["xy_choosed"][:, sel]
+        with torch.no_grad():
+            pnp = pnp_ransac(pw, uv, batch["k"],
+                             generator=generator, subset_ids=subset_ids,
+                             num_hypotheses=num_hypotheses, inlier_px=2.0,
+                             refine_iters=3)
+        wts = pnp["inliers"].float() + 1e-3
+        pose6 = pnp_implicit(pnp["pose6"], pw, uv, batch["k"], wts)
+        return pose_loss(axis_angle_to_matrix(pose6[:, :3]), pose6[:, 3:],
+                         batch["target"], batch["model_points"],
+                         batch["sym_mask"])
+
+    return refine_loss
+
+
 class TrainStep:
     """step(state, batch, opt_pose=True, train=True) -> metrics dict of
     0-d device tensors (the loss terms, skipped_nonfinite and grad_norm,
@@ -50,22 +96,28 @@ class TrainStep:
     stages are methods of their own: `losses`, `gradients`, `apply`."""
 
     def __init__(self, model, tx, cfg: Config):
-        if cfg.train.refine:
-            raise NotImplementedError("train.refine (the differentiable-PnP "
-                                      "loss) is not ported")
-        if cfg.module.norm == "bn":
-            raise NotImplementedError("norm='bn' is not ported")
         self.model, self.tx, self.cfg = model, tx, cfg
         self.weights = loss_weights_dict(cfg)
+        self.refine_loss = (build_refine_loss(cfg) if cfg.train.refine
+                            else None)
 
     def losses(self, batch: dict, opt_pose: bool = True, train: bool = True,
-               generator=None) -> dict:
+               generator=None, subset_ids=None) -> dict:
+        """The loss terms; with train.refine and opt_pose also loss_refine,
+        its RANSAC subsets drawn from `generator` after the forward's
+        draws, or injected as `subset_ids`."""
         if self.cfg.module.xyz_offset_decode:
             batch = offset_targets(batch)
         out = self.model(batch["img"], batch["cloud"], batch["choose"],
                          batch["cls"], opt_pose=opt_pose, train=train,
                          generator=generator)
-        return krrn_loss(out, batch, self.weights, opt_pose=opt_pose)
+        losses = krrn_loss(out, batch, self.weights, opt_pose=opt_pose)
+        if self.refine_loss is not None and opt_pose:
+            losses["loss_refine"] = self.refine_loss(out, batch, generator,
+                                                     subset_ids)
+            w = self.cfg.train.loss.weight_refine
+            losses["loss"] = losses["loss"] + w * losses["loss_refine"]
+        return losses
 
     def gradients(self, losses: dict) -> dict:
         """Gradient of the total loss for every parameter; zeros for the

@@ -59,9 +59,11 @@ def _generator(seed: int, stream: int, epoch: int, device="cpu"):
 class Trainer:
     def __init__(self, cfg: Config, dataset, log_dir: str = "runs/default",
                  model=None, resume: str | None = None,
-                 resume_backbone_only: bool = False, device="cuda"):
+                 resume_backbone_only: bool = False, device="cuda",
+                 enable_rot: bool = False):
         """`model` (default: the config's KRRN with seeded random
-        weights) is moved to `device`."""
+        weights, with the rotation heads when `enable_rot`) is moved to
+        `device`."""
         self.cfg = cfg
         self.dataset = dataset
         self.device = resolve_device(device)
@@ -69,7 +71,8 @@ class Trainer:
         torch.backends.cudnn.allow_tf32 = False
         torch.manual_seed(cfg.seed)
         dtype = torch.bfloat16 if cfg.train.amp else torch.float32
-        self.model = (model or KRRN(cfg, dtype=dtype)).to(self.device)
+        self.model = (model or KRRN(cfg, dtype=dtype, enable_rot=enable_rot)
+                      ).to(self.device)
         steps_per_epoch = max(1, len(dataset) // cfg.train.batch_size)
         self.tx = make_optimizer(
             cfg, total_steps=steps_per_epoch * cfg.train.num_epoch)

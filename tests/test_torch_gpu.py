@@ -746,3 +746,90 @@ def test_cli_trains_on_a_linemod_tree_on_the_card(dev, tmp_path):
              (tmp_path / "run" / "eval.jsonl").read_text().splitlines()]
     assert len(train) == 1 and np.isfinite(train[0]["loss"])
     assert evals[0]["count"] == 2 and np.isfinite(evals[0]["add_dis"])
+
+
+def _synthetic_batch(dev):
+    from pose_estimation_tpu_torch.data.batching import make_batch
+    from pose_estimation_tpu_torch.data.synthetic import SyntheticPoseDataset
+    ds = SyntheticPoseDataset(num_objects=2, frames_per_object=2, im_h=240,
+                              im_w=320, num_regions=8)
+    batch = make_batch(ds, [0, 3], torch.Generator().manual_seed(0), 64, 128)
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def test_bn_refine_adam_train_step_kernels_vs_plain(dev, monkeypatch):
+    """The training options off in the shipped config (BatchNorm, the
+    refine loss, Adam) on a tiny model: one step's losses, gradient norm
+    and moved running statistics with the kernels against the plain
+    versions from the same weights, statistics and draws; launches 2, 1,
+    8 and 3 (the refine loss's ADD(-S) adds a nearest-source call)."""
+    from pose_estimation_tpu_torch.train.optim import make_optimizer
+    from pose_estimation_tpu_torch.train.state import TrainState
+    from pose_estimation_tpu_torch.train.train_step import build_train_step
+    cfg = schema.override(TINY, **{"module.norm": "bn", "train.refine": True,
+                                   "train.optimizer.type": "Adam",
+                                   "train.batch_size": 2})
+    torch.manual_seed(0)
+    model = KRRN(cfg).to(dev)
+    tx = make_optimizer(cfg, total_steps=10)
+    state = TrainState.create(model, tx,
+                              torch.Generator(device=dev).manual_seed(0))
+    step = build_train_step(model, tx, cfg)
+    batch = _synthetic_batch(dev)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def run():
+        model.load_state_dict(start)
+        state.generator.manual_seed(1)
+        losses = step.losses(batch, True, True, state.generator)
+        grads = step.gradients(losses)
+        gn = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads.values()))
+        return ({k: losses[k].item() for k in ("loss", "loss_refine")},
+                float(gn), {k: v.clone() for k, v in model.named_buffers()})
+
+    for f in (gcn.linear_multi, gcn.surface_multi, pointops.knn,
+              pointops.nearest_multi):
+        f.launches = 0
+    got = run()
+    assert (gcn.linear_multi.launches, gcn.surface_multi.launches,
+            pointops.knn.launches,
+            pointops.nearest_multi.launches) == (2, 1, 8, 3)
+    for name in ("linear_multi", "surface_multi", "aggregate"):
+        monkeypatch.setattr(gcn, name, getattr(gcn, f"{name}_plain"))
+    for name in ("knn", "nearest_multi"):
+        monkeypatch.setattr(pointops, name, getattr(pointops, f"{name}_plain"))
+    ref = run()
+    for k, v in ref[0].items():
+        assert abs(got[0][k] - v) <= 2e-2 * max(1.0, abs(v)), k
+    assert abs(got[1] - ref[1]) <= 2e-2 * ref[1]
+    for k, v in ref[2].items():
+        assert not torch.equal(v, start[k]), k
+        assert (got[2][k] - v).abs().max() <= 1e-3 * max(1.0, v.abs().max())
+    monkeypatch.undo()
+    model.load_state_dict(start)
+    m = step(state, batch, opt_pose=True)
+    assert float(m["skipped_nonfinite"]) == 0.0
+    assert all(torch.isfinite(v) for v in m.values())
+
+
+def test_pnp_implicit_backward_on_the_card_matches_the_cpu(dev):
+    from pose_estimation_tpu_torch.core.solvers.pnp import pnp_implicit
+    g = torch.Generator().manual_seed(0)
+    b, n = 4, 64
+    pw = (torch.rand(b, n, 3, generator=g) - 0.5) * 0.2
+    pose = torch.cat([torch.randn(b, 3, generator=g) * 0.5,
+                      torch.tensor([[0.02, -0.01, 0.8]]).expand(b, 3)], -1)
+    k = torch.tensor([[572.4, 0.0, 325.3], [0.0, 573.6, 242.0],
+                      [0.0, 0.0, 1.0]]).expand(b, 3, 3)
+    uv = torch.rand(b, n, 2, generator=g) * 40 + 300
+    w = torch.rand(b, n, generator=g) + 0.1
+    cot = torch.randn(b, 6, generator=g)
+    grads = []
+    for d in ("cpu", dev):
+        args = [t.to(d).clone().requires_grad_() for t in (pw, uv, k)]
+        out = pnp_implicit(pose.to(d), *args, w.to(d))
+        (out * cot.to(d)).sum().backward()
+        grads.append([a.grad.cpu() for a in args])
+    for ref, got in zip(*grads):
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
