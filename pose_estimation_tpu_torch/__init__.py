@@ -21,7 +21,9 @@ Layout:
   data            synthetic frames, sample preparation, batching, prefetch
   serve           the two-stage image -> pose serving program
   train           Ranger, train state, train step, checkpoints, trainer
-  cli             the training command line (synthetic data)
+  parallel        the process group and its collectives (data parallelism
+                  with the JAX global-batch semantics), the ring point ops
+  cli             the training command line (torchrun for several cards)
   convert         JAX ('/'-joined npz) params and parameter-shaped trees
                   -> torch
   tools/infer     serving CLI (JSONL per frame)

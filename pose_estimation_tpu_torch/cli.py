@@ -12,6 +12,14 @@ the BOP or the classic layout and YCB-V (BOP layout) under
 The run writes log_dir/train.jsonl, log_dir/eval.jsonl and checkpoints
 under log_dir/ckpt; each eval summary is echoed to stdout as a JSON line.
 `--eval_mode` evaluates the test split once instead of training.
+
+On N cards of a node, under torchrun (one process a card, NCCL):
+
+  torchrun --nproc_per_node=N -m pose_estimation_tpu_torch.cli ...
+
+trains data-parallel: train.batch_size rows a card, a global batch of
+batch_size x N (parallel/dist.py); rank 0 writes the logs, the
+checkpoints and stdout.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import json
 import sys
 
 from pose_estimation_tpu_torch.configs import schema
+from pose_estimation_tpu_torch.parallel import dist
 
 NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 4, the transparent "
               "pipeline)")
@@ -102,6 +111,16 @@ def main(argv=None):
                    help="KRRN with its two rotation heads (pred_r)")
     args = p.parse_args(argv)
 
+    joined = not dist.is_initialized() and dist.distributed_init(
+        "gloo" if args.device == "cpu" else None)
+    try:
+        return _run(args)
+    finally:
+        if joined:
+            dist.destroy()
+
+
+def _run(args) -> int:
     cfg = load_config(args.config)
     if args.dataset:
         cfg = cfg.replace(dataset=args.dataset)
@@ -116,7 +135,9 @@ def main(argv=None):
                       device=args.device, enable_rot=args.enable_rot)
     trainer.init_state()
     if args.eval_mode:
-        print(json.dumps(trainer.test_epoch(0), indent=2))
+        summary = trainer.test_epoch(0)
+        if dist.is_primary():
+            print(json.dumps(summary, indent=2))
         return 0
     trainer.fit(num_epochs=args.epochs,
                 steps_per_epoch=5 if args.debug else None)

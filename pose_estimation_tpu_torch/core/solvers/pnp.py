@@ -5,7 +5,9 @@ Hypotheses: EPnP on H minimal subsets of distinct points; scoring:
 reprojection inliers over all points; refinement: LM on the winner (or the
 refine_top_k best, ranked by a common Cauchy cost). The subsets come from a
 torch.Generator (the JAX package uses jax.random, which torch cannot
-reproduce) or are injected as `subset_ids` [B, H, sample_size].
+reproduce) or are injected as `subset_ids` [B, H, sample_size]; under a
+process group both are the global batch's, of which each rank takes its
+rows.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from pose_estimation_tpu_torch.core.geometry.rotations import (
 from pose_estimation_tpu_torch.core.solvers.epnp import epnp_fast
 from pose_estimation_tpu_torch.core.solvers.lm import (
     refine_pose_lm, reprojection_residuals)
+from pose_estimation_tpu_torch.parallel import dist
 
 
 def minimal_subsets(generator, mask: torch.Tensor, num: int,
@@ -24,17 +27,21 @@ def minimal_subsets(generator, mask: torch.Tensor, num: int,
     """[B, num_subsets, num] duplicate-free subsets of the valid points:
     one random permutation of the valid points per instance, subset h the
     window [h*num, h*num + num) modulo n_valid while it fits, a random
-    window start after that (the JAX sampler's algorithm)."""
+    window start after that (the JAX sampler's algorithm). Under a
+    process group the random numbers are drawn at the global batch's
+    shape and each rank takes its rows (dist.draw_rows)."""
     b, n = mask.shape
     dev = mask.device
-    g = torch.rand((b, n), generator=generator, device=dev)
+    g = dist.draw_rows(lambda shape: torch.rand(
+        shape, generator=generator, device=dev), (b, n))
     valid = mask > 0
     perm = torch.argsort(torch.where(valid, g, torch.full_like(g, float("inf"))),
                          dim=-1, stable=True)
     n_valid = torch.clamp(valid.sum(-1), min=num)                 # [B]
     seq = torch.arange(num_subsets, device=dev) * num
-    rand = torch.randint(0, 2 ** 31 - 1, (b, num_subsets),
-                         generator=generator, device=dev) % n_valid[:, None]
+    rand = dist.draw_rows(lambda shape: torch.randint(
+        0, 2 ** 31 - 1, shape, generator=generator, device=dev),
+        (b, num_subsets)) % n_valid[:, None]
     starts = torch.where(seq + num <= n_valid[:, None], seq, rand)
     pos = (starts[..., None] + torch.arange(num, device=dev)) % n_valid[
         :, None, None]
@@ -62,7 +69,8 @@ def pnp_ransac(pw: torch.Tensor, uv: torch.Tensor, k: torch.Tensor,
                robust_refine: bool = False, refine_top_k: int = 1):
     """pw [B, n, 3], uv [B, n, 2], k [B, 3, 3], mask [B, n] -> dict of
     r [B, 3, 3], t [B, 3], pose6 [B, 6], inliers [B, n], mean_err [B],
-    num_inliers [B]."""
+    num_inliers [B]. An injected `subset_ids` is [B x world_size, H,
+    sample_size], the global batch's."""
     b, n, _ = pw.shape
     if mask is None:
         mask = torch.ones((b, n), dtype=pw.dtype, device=pw.device)
@@ -70,6 +78,8 @@ def pnp_ransac(pw: torch.Tensor, uv: torch.Tensor, k: torch.Tensor,
     if subset_ids is None:
         subset_ids = minimal_subsets(generator, mask, sample_size,
                                      num_hypotheses)
+    else:
+        subset_ids = dist.rank_rows(subset_ids)
     h = subset_ids.shape[1]
     kh = k[:, None].expand(b, h, 3, 3)
     rs, ts = epnp_fast(_take(pw, subset_ids), _take(uv, subset_ids), kh)

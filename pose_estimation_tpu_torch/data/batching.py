@@ -79,19 +79,27 @@ def make_batch(dataset, indices, generator: torch.Generator | None = None,
 
 
 def epoch_indices(generator: torch.Generator, num_samples: int,
-                  batch_size: int) -> np.ndarray:
-    """Shuffled index batches [n_batches, batch_size] for one training
-    epoch: one permutation from `generator`, the tail shorter than a batch
-    dropped (one process; the multi-GPU slice adds the shards)."""
+                  batch_size: int, shard_count: int = 1,
+                  shard_index: int = 0) -> np.ndarray:
+    """Shuffled index batches [n_batches, batch_size] of shard
+    `shard_index` for one training epoch: one permutation from
+    `generator` (the same on every process), every shard_count-th entry
+    of it, the tail shorter than a batch dropped. Every shard runs the
+    same (num_samples // shard_count) // batch_size batches, the JAX
+    arithmetic: a process with one batch more would enter the step's
+    collectives alone and hang the group."""
     perm = torch.randperm(num_samples, generator=generator).numpy()
-    n_batches = num_samples // batch_size
+    perm = perm[shard_index::shard_count]
+    n_batches = (num_samples // shard_count) // batch_size
     return perm[: n_batches * batch_size].reshape(n_batches, batch_size)
 
 
 def eval_indices(num_samples: int, batch_size: int, shard_count: int = 1,
                  shard_index: int = 0):
-    """Deterministic full-coverage eval batches (indices, valid); the last
-    batch is padded with index 0 and valid=False."""
+    """Deterministic full-coverage eval batches (indices, valid) of shard
+    `shard_index`: every shard_count-th sample, the last batches padded
+    with index 0 and valid=False, so that every shard runs the longest
+    shard's ceil(ceil(num_samples / shard_count) / batch_size) batches."""
     ids = np.arange(num_samples)[shard_index::shard_count]
     longest = -(-num_samples // max(shard_count, 1))
     n_batches = max(1, -(-longest // batch_size))

@@ -1,12 +1,13 @@
 """Per-pixel map losses with invalid-pixel masking (counterpart of
 losses/map_loss.py). NHWC maps; each loss is normalised by the count of
-valid pixels."""
+valid pixels, over the global batch under a process group."""
 
 from __future__ import annotations
 
 import torch
 
 from pose_estimation_tpu_torch.core.mathsafe import safe_norm
+from pose_estimation_tpu_torch.parallel import dist
 
 _EPS = 1e-6
 
@@ -33,9 +34,18 @@ def ce_map(pred_logits: torch.Tensor, target_idx: torch.Tensor
 
 
 def masked_mean(per_pixel: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Sum over valid pixels / number of valid pixels (at least 1)."""
+    """Sum over valid pixels / number of valid pixels (at least 1).
+
+    Under a process group the mean is over the global batch, as the JAX
+    step's: the count is summed over the group (no gradient) and the
+    local sum scaled by world_size / count, so that the mean over the
+    ranks of this value, which the step logs, is the global masked mean
+    and the averaged gradient is its gradient."""
     total = torch.sum(per_pixel * valid)
-    return total / torch.clamp(torch.sum(valid), min=1.0)
+    count = dist.all_reduce_sum(torch.sum(valid))
+    mean = total / torch.clamp(count, min=1.0)
+    n = dist.world_size()
+    return mean * n if n > 1 else mean
 
 
 def map_loss(kind: str, pred: torch.Tensor, target: torch.Tensor,

@@ -10,6 +10,7 @@ import torch
 from pose_estimation_tpu_torch.core.geometry.rotations import (
     angular_distance, transform_points)
 from pose_estimation_tpu_torch.core.pointops import min_dists
+from pose_estimation_tpu_torch.parallel import dist
 
 
 def add_metric(pred_r, pred_t, gt_r, gt_t, model_points, sym_mask):
@@ -66,8 +67,9 @@ def add_auc(distances: np.ndarray, max_dis: float = 0.1) -> float:
 
 class PerObjectAccumulator:
     """Host-side per-object metric table: feed batched metric dicts and
-    class ids; read a per-object and an overall summary. One process (the
-    cross-process merge belongs to the multi-GPU slice)."""
+    class ids; read a per-object and an overall summary. Under a process
+    group each rank feeds its shard of the test set and
+    `all_reduce_across_processes` merges them before the summary."""
 
     def __init__(self, num_cls: int):
         self.num_cls = num_cls
@@ -88,6 +90,29 @@ class PerObjectAccumulator:
             self.sums[k] += (onehot * v[:, None]).sum(0)
         for c, d in zip(cls_ids, np.asarray(metrics["add_dis"]).reshape(-1)):
             self.dis_all[c].append(float(d))
+
+    def all_reduce_across_processes(self):
+        """Merge the ranks' tables (JAX metric.py:108-133): counts and sums
+        summed, the per-class distance lists (the AUC's input) gathered,
+        NaN-padded to the longest for the gather, in rank order. Every
+        rank then holds the union; a no-op with one process."""
+        if dist.world_size() == 1:
+            return self
+        self.count = dist.all_gather_array(self.count).sum(0)
+        self.sums = {k: dist.all_gather_array(v).sum(0)
+                     for k, v in self.sums.items()}
+        lens = np.array([len(d) for d in self.dis_all], np.int32)
+        all_lens = dist.all_gather_array(lens)                  # [P, C]
+        m = max(int(all_lens.max()), 1)
+        pad = np.full((self.num_cls, m), np.nan, np.float32)
+        for c, d in enumerate(self.dis_all):
+            pad[c, :len(d)] = d
+        gathered = dist.all_gather_array(pad)                   # [P, C, m]
+        self.dis_all = [
+            [float(x) for p in range(gathered.shape[0])
+             for x in gathered[p, c, :all_lens[p, c]]]
+            for c in range(self.num_cls)]
+        return self
 
     def summary(self) -> dict:
         cnt = np.maximum(self.count, 1)

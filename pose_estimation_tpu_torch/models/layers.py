@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pose_estimation_tpu_torch.parallel import dist
+
 
 class Named(nn.Module):
     """nn.Module that names its children like flax's compact modules:
@@ -146,7 +148,16 @@ class BatchNorm(nn.Module):
     changes nothing. The output is in the compute dtype. Unlike
     nn.BatchNorm2d it keeps no num_batches_tracked and puts no unbiased
     variance in running_var: the state is flax's params and batch_stats,
-    leaf for leaf (convert.py)."""
+    leaf for leaf (convert.py).
+
+    Under a process group the training statistics are the global batch's,
+    as in the JAX step (one program over the mesh): E[x] and E[x^2] of
+    every rank, in one buffer a layer, are averaged over the group by
+    dist.group_mean, whose backward averages the gradients that reach
+    them, so the step's averaged gradient is the one-process gradient at
+    the global batch. Every rank holds as many rows, so the mean of the
+    ranks' means is the global mean. Eval reads the running statistics,
+    with no collective."""
 
     momentum, eps = 0.9, 1e-5
 
@@ -165,8 +176,12 @@ class BatchNorm(nn.Module):
         axes = [d for d in range(x.ndim) if d != ch]
         shape = [-1 if d == ch else 1 for d in range(x.ndim)]
         if self.training:
-            mean = xf.mean(axes)
-            var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+            mean, meansq = xf.mean(axes), (xf * xf).mean(axes)
+            if dist.is_initialized():
+                c = mean.shape[0]
+                mean, meansq = dist.group_mean(
+                    torch.cat([mean, meansq])).split(c)
+            var = torch.clamp(meansq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

@@ -10,16 +10,23 @@ import torch
 
 from pose_estimation_tpu_torch.core.mathsafe import safe_normalize
 from pose_estimation_tpu_torch.models.layers import Dense, MLP1d, Named, Norm
+from pose_estimation_tpu_torch.parallel import dist
 
 
 def dropout(x, rate, generator=None, keep=None):
     """flax's nn.Dropout in training: keep each value with probability
     1 - rate and scale the kept ones by 1 / (1 - rate). The keep mask
-    comes from `generator`, or is injected as `keep`."""
+    comes from `generator`, or is injected as `keep`, at the global
+    batch's shape under a process group (dist.draw_rows): each rank
+    keeps its rows of one draw, as the JAX step's one mask over the
+    mesh."""
     p = 1.0 - rate
     if keep is None:
         dev = x.device if generator is None else generator.device
-        keep = torch.rand(x.shape, generator=generator, device=dev) < p
+        keep = dist.draw_rows(lambda shape: torch.rand(
+            shape, generator=generator, device=dev) < p, x.shape)
+    else:
+        keep = dist.rank_rows(keep)
     return torch.where(keep.to(x.device), x / p, torch.zeros_like(x))
 
 

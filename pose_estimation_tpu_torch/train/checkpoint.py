@@ -4,7 +4,9 @@ CheckpointManager): one directory per step under `directory`, holding
 BatchNorm's running statistics, optimizer state, step, generator state,
 best distance, LR scale) and `metrics.json`. The newest `max_to_keep` steps
 are kept. A save writes to a temporary file first, so a step directory
-never holds a half-written state.
+never holds a half-written state. Under a process group rank 0 writes
+and every rank waits at a barrier until the step is on disk; every rank
+reads (the trainer loads a checkpoint on every rank or on none).
 
 `merge_partial_params` is the partial (backbone-only) restore, and
 `save_params_npz` writes a model's parameters in the JAX package's
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from pose_estimation_tpu_torch.convert import torch_to_flax
+from pose_estimation_tpu_torch.parallel import dist
 
 
 class CheckpointManager:
@@ -39,18 +42,22 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state, metrics: dict | None = None):
-        """Write `state` as step `step` (an existing one is replaced)."""
-        path = os.path.join(self.directory, str(int(step)))
-        os.makedirs(path, exist_ok=True)
-        tmp = os.path.join(path, "state.pt.tmp")
-        torch.save(state.state_dict(), tmp)
-        os.replace(tmp, os.path.join(path, "state.pt"))
-        with open(os.path.join(path, "metrics.json"), "w") as f:
-            json.dump(metrics or {}, f)
-        for old in self.steps()[:-self.max_to_keep]:
-            shutil.rmtree(os.path.join(self.directory, str(old)))
+        """Write `state` as step `step` (an existing one is replaced): on
+        rank 0, then a barrier of the group."""
+        if dist.is_primary():
+            path = os.path.join(self.directory, str(int(step)))
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, "state.pt.tmp")
+            torch.save(state.state_dict(), tmp)
+            os.replace(tmp, os.path.join(path, "state.pt"))
+            with open(os.path.join(path, "metrics.json"), "w") as f:
+                json.dump(metrics or {}, f)
+            for old in self.steps()[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self.directory, str(old)))
+        dist.barrier()
 
-    def _load(self, step: int) -> dict:
+    def read(self, step: int) -> dict:
+        """Step `step`'s saved state dict, on the CPU."""
         return torch.load(os.path.join(self.directory, str(step), "state.pt"),
                           map_location="cpu", weights_only=True)
 
@@ -60,7 +67,7 @@ class CheckpointManager:
         step = self.latest_step()
         if step is None:
             return None
-        return state.load_state_dict(self._load(step))
+        return state.load_state_dict(self.read(step))
 
     @torch.no_grad()
     def merge_partial_params(self, model: torch.nn.Module) -> int:
@@ -74,7 +81,7 @@ class CheckpointManager:
         step = self.latest_step()
         if step is None:
             return 0
-        saved = self._load(step)["model"]
+        saved = self.read(step)["model"]
         merged = 0
         for name, p in model.named_parameters():
             src = saved.get(name)

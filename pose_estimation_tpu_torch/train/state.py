@@ -79,17 +79,22 @@ class TrainState:
                 "generator": self.generator.get_state(),
                 "best_dis": self.best_dis, "lr_scale": self.lr_scale}
 
+    def check_state_dict(self, sd: dict) -> tuple:
+        """Raise ValueError unless `sd` fits this state: its keys, the
+        shapes of the parameters, the optimizer state and the generator
+        state (a CPU and a CUDA generator's differ); its scalars (step,
+        best_dis, lr_scale) read."""
+        _check_fits("state", self.state_dict(), sd)
+        return (int(sd["step"]), float(sd["best_dis"]),
+                float(sd["lr_scale"]))
+
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> "TrainState":
-        """Load `sd` in place, or raise and change nothing: its keys, the
-        shapes of the parameters, the optimizer state and the generator
-        state (a CPU and a CUDA generator's differ) are checked, and its
-        scalars read, before anything is copied (nn.Module.load_state_dict
-        copies every tensor whose shape fits before it raises on one that
-        does not)."""
-        _check_fits("state", self.state_dict(), sd)
-        step, best_dis, lr_scale = (int(sd["step"]), float(sd["best_dis"]),
-                                    float(sd["lr_scale"]))
+        """Load `sd` in place, or raise and change nothing: it is checked
+        (check_state_dict) before anything is copied
+        (nn.Module.load_state_dict copies every tensor whose shape fits
+        before it raises on one that does not)."""
+        step, best_dis, lr_scale = self.check_state_dict(sd)
         self.model.load_state_dict(sd["model"], strict=True)
         self.opt_state = _to(sd["opt_state"],
                              next(self.model.parameters()).device)

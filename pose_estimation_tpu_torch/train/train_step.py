@@ -1,17 +1,24 @@
-"""The KRRN training step on one device (counterpart of
-parallel/train_step.py:29-35,98-173; the multi-GPU step is a later slice).
+"""The KRRN training step (counterpart of
+parallel/train_step.py:29-35,98-173), on one device or on each rank of a
+process group (parallel.dist) with the JAX step's global-batch semantics.
 
   batch -> (offset-decode target rewrite) -> KRRN forward (train draws
   from the state's generator; BatchNorm on the batch's statistics, moving
   the running ones) -> krrn_loss (+ weight_refine x the differentiable-
-  PnP refine loss with train.refine) -> gradients of every parameter ->
-  NaN guard -> Ranger or Adam update, in place.
+  PnP refine loss with train.refine) -> gradients of every parameter
+  (averaged over the group in one flat buffer) -> NaN guard -> Ranger or
+  Adam update, in place.
 
 The NaN guard is the JAX package's, to the letter: the global gradient
 norm is taken before clipping; when it or the loss is not finite the
 gradients are zeroed and the update still runs, so the moments, the count
 and Lookahead's count all advance; the step reports skipped_nonfinite.
-Nothing in the step waits for the device: its metrics stay tensors.
+Under a group the gradient and the loss terms are averaged over it before
+the guard, so every rank reads the global norm and loss, takes the same
+skip decision and applies the same update; the masked means, BatchNorm's
+statistics and the draws with a batch axis are the global batch's (see
+parallel/dist.py). Nothing in the step waits for the device: its metrics
+stay tensors.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from pose_estimation_tpu_torch.core.solvers.pnp import (
     pnp_implicit, pnp_ransac)
 from pose_estimation_tpu_torch.data.pipeline import denormalize_xyz
 from pose_estimation_tpu_torch.losses.pose_loss import krrn_loss, pose_loss
+from pose_estimation_tpu_torch.parallel import dist
 from pose_estimation_tpu_torch.serve import region_base_at_choose
 from pose_estimation_tpu_torch.train.state import TrainState
 
@@ -58,7 +66,8 @@ def build_refine_loss(cfg: Config, num_points: int = 128,
     xyz_emb in fp32 (plus the soft region decode under
     xyz_offset_decode) at `num_points` strided points, denormalised; a
     PnP-RANSAC solve without gradients (`num_hypotheses` subsets from
-    `generator`, or `subset_ids` [B, H, 6]; inliers at 2 px; 3 LM
+    `generator`, or `subset_ids` [B x world_size, H, 6], the global
+    batch's, as pnp_ransac takes them; inliers at 2 px; 3 LM
     iterations); pnp_implicit re-attaches the gradient to the points at
     the solution, weighted by its inliers + 1e-3; then the ADD(-S) loss
     of that pose against the batch's targets."""
@@ -105,7 +114,7 @@ class TrainStep:
                generator=None, subset_ids=None) -> dict:
         """The loss terms; with train.refine and opt_pose also loss_refine,
         its RANSAC subsets drawn from `generator` after the forward's
-        draws, or injected as `subset_ids`."""
+        draws, or injected as `subset_ids` (the global batch's)."""
         if self.cfg.module.xyz_offset_decode:
             batch = offset_targets(batch)
         out = self.model(batch["img"], batch["cloud"], batch["choose"],
@@ -122,22 +131,26 @@ class TrainStep:
     def gradients(self, losses: dict) -> dict:
         """Gradient of the total loss for every parameter; zeros for the
         ones the loss does not reach (the pose branch without opt_pose),
-        as jax.grad gives."""
+        as jax.grad gives. Under a group, averaged over it (views of one
+        flat buffer)."""
         names, params = zip(*self.model.named_parameters())
         grads = torch.autograd.grad(losses["loss"], params,
                                     allow_unused=True,
                                     materialize_grads=True)
-        return dict(zip(names, grads))
+        return dict(zip(names, dist.all_reduce_mean(grads)))
 
     def apply(self, state: TrainState, losses: dict, grads: dict) -> dict:
+        """The guard and the update from `grads` (already averaged over
+        the group); the metrics are the loss terms averaged over the
+        group, the guard's decision and the gradient norm."""
+        metrics = dist.mean_dict({k: v.detach() for k, v in losses.items()})
         with torch.no_grad():
             gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                    for g in grads.values()))
-            finite = torch.isfinite(losses["loss"]) & torch.isfinite(gnorm)
+            finite = torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm)
             grads = {k: torch.where(finite, g, torch.zeros_like(g))
                      for k, g in grads.items()}
         state.apply_gradients(self.tx, grads)
-        metrics = {k: v.detach() for k, v in losses.items()}
         metrics["skipped_nonfinite"] = (~finite).float()
         metrics["grad_norm"] = gnorm
         return metrics

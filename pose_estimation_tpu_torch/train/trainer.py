@@ -1,9 +1,16 @@
 """Trainer (counterpart of train/trainer.py): epoch loops, eval with the
 on-device pose recovery of serve.EvalStep, best-model tracking, manual LR
-decay, checkpoints, JSONL metrics. One device: the card unless the caller
-passes device="cpu" (no card raises); the multi-GPU trainer is a later
-slice, as are the TensorBoard
-mirror and the eval overlay images (utils/tb, utils/viz).
+decay, checkpoints, JSONL metrics. The card unless the caller passes
+device="cpu" (no card raises).
+
+Under a process group (parallel.dist) each rank is one shard, as in the
+JAX trainer: disjoint train and eval shards of equal batch counts, the LR
+horizon over the shards, the step's reductions over the global batch
+(train.train_step), the eval tables merged before the summary, so that
+best_dis and the LR decay agree on every rank, logs written by rank 0 and
+checkpoints saved by rank 0 and loaded on every rank or on none. The
+TensorBoard mirror and the eval overlay images (utils/tb, utils/viz) are
+not ported.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from pose_estimation_tpu_torch.data.prefetch import prefetched_epoch
 from pose_estimation_tpu_torch.device import resolve_device
 from pose_estimation_tpu_torch.metrics.metric import PerObjectAccumulator
 from pose_estimation_tpu_torch.models.krrn import KRRN
+from pose_estimation_tpu_torch.parallel import dist
 from pose_estimation_tpu_torch.serve import build_eval_step
 from pose_estimation_tpu_torch.train.checkpoint import CheckpointManager
 from pose_estimation_tpu_torch.train.guards import TrainGuard
@@ -31,13 +39,18 @@ from pose_estimation_tpu_torch.train.train_step import build_train_step
 
 
 class MetricsLogger:
-    """Appends one JSON record per call to log_dir/<name>.jsonl."""
+    """Appends one JSON record per call to log_dir/<name>.jsonl; with
+    enabled=False (the ranks but 0 of a group) it writes nothing."""
 
-    def __init__(self, log_dir: str, name: str = "train"):
+    def __init__(self, log_dir: str, name: str = "train",
+                 enabled: bool = True):
+        self.enabled = enabled
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, f"{name}.jsonl")
 
     def log(self, step: int, payload: dict, echo: bool = False):
+        if not self.enabled:
+            return
         rec = {"step": int(step), "time": time.time()}
         rec.update({k: (float(v) if isinstance(v, (int, float, np.floating,
                                                    torch.Tensor))
@@ -57,15 +70,21 @@ def _generator(seed: int, stream: int, epoch: int, device="cpu"):
 
 
 class Trainer:
-    def __init__(self, cfg: Config, dataset, log_dir: str = "runs/default",
-                 model=None, resume: str | None = None,
+    def __init__(self, cfg: Config, dataset, test_dataset=None,
+                 log_dir: str = "runs/default", model=None,
+                 resume: str | None = None,
                  resume_backbone_only: bool = False, device="cuda",
                  enable_rot: bool = False):
         """`model` (default: the config's KRRN with seeded random
         weights, with the rotation heads when `enable_rot`) is moved to
-        `device`."""
+        `device`; `test_dataset` (default: `dataset`) is what test_epoch
+        evaluates."""
         self.cfg = cfg
         self.dataset = dataset
+        self.test_dataset = test_dataset or dataset
+        dist.check_mesh(cfg.mesh)
+        self.shard_count, self.shard_index = dist.world_size(), dist.rank()
+        self.primary = self.shard_index == 0
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -73,15 +92,17 @@ class Trainer:
         dtype = torch.bfloat16 if cfg.train.amp else torch.float32
         self.model = (model or KRRN(cfg, dtype=dtype, enable_rot=enable_rot)
                       ).to(self.device)
-        steps_per_epoch = max(1, len(dataset) // cfg.train.batch_size)
+        # the LR horizon: the steps this rank runs over its shards
+        steps_per_epoch = max(1, len(dataset) // (cfg.train.batch_size
+                                                  * self.shard_count))
         self.tx = make_optimizer(
             cfg, total_steps=steps_per_epoch * cfg.train.num_epoch)
         self.train_step = build_train_step(self.model, self.tx, cfg)
         # on a card this checks cfg against the kernels' limits
         # (ops.check_config) before anything launches
         self.eval_step = build_eval_step(self.model, cfg)
-        self.log = MetricsLogger(log_dir, "train")
-        self.eval_log = MetricsLogger(log_dir, "eval")
+        self.log = MetricsLogger(log_dir, "train", enabled=self.primary)
+        self.eval_log = MetricsLogger(log_dir, "eval", enabled=self.primary)
         self.ckpt = CheckpointManager(os.path.join(log_dir, "ckpt"))
         self.resume = resume
         self.resume_backbone_only = resume_backbone_only
@@ -94,26 +115,49 @@ class Trainer:
         loaded into it when there is one. A checkpoint that does not fit
         the model (another config) is skipped, as the JAX trainer skips
         it: the run starts from the fresh state, which the failed restore
-        leaves untouched (TrainState.load_state_dict checks before it
-        loads). With `resume_backbone_only`, only the parameters of
-        `resume` whose name and shape match are copied in; the optimizer
-        state, the step and the generator stay fresh."""
+        leaves untouched (TrainState.check_state_dict checks before
+        anything loads). Under a group every rank reads the checkpoint,
+        and it is loaded only where every rank read the same step and
+        found it fits; otherwise every rank starts fresh. With
+        `resume_backbone_only`, only the parameters of `resume` whose name
+        and shape match are copied in (as many on every rank, or it
+        raises); the optimizer state, the step and the generator stay
+        fresh."""
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
         self.state = TrainState.create(self.model, self.tx, gen)
         if self.resume and self.resume_backbone_only:
             # load_part_module equivalent (lib/utils/utlis.py:37-52)
             n = CheckpointManager(self.resume).merge_partial_params(
                 self.model)
-            print(f"[trainer] partial restore: {n} matching param leaves "
-                  f"from {self.resume}")
+            counts = dist.all_gather_array(np.array([n]))[:, 0]
+            if (counts != n).any():
+                raise RuntimeError(f"partial restore from {self.resume}: "
+                                   f"the ranks merged {counts.tolist()} "
+                                   "parameters")
+            if self.primary:
+                print(f"[trainer] partial restore: {n} matching param leaves "
+                      f"from {self.resume}")
             return self.state
         source = (CheckpointManager(self.resume) if self.resume
                   else self.ckpt)
-        try:
-            source.restore(self.state)
-        except Exception as e:  # incompatible/stale checkpoint: fresh start
-            print(f"[trainer] checkpoint restore failed ({type(e).__name__});"
+        step, sd, failed = source.latest_step(), None, None
+        if step is not None:
+            try:
+                sd = source.read(step)
+                self.state.check_state_dict(sd)
+            except Exception as e:  # incompatible/stale checkpoint
+                failed = type(e).__name__
+        views = dist.all_gather_array(
+            np.array([-1 if step is None else step, failed is None]))
+        if failed is not None:
+            print(f"[trainer] checkpoint restore failed ({failed});"
                   " starting fresh")
+        elif not views[:, 1].all() or (views[:, 0] != views[0, 0]).any():
+            print(f"[trainer] rank {self.shard_index}: the ranks read "
+                  f"checkpoint steps {views[:, 0].tolist()}, not all "
+                  "restorable; starting fresh")
+        elif sd is not None:
+            self.state.load_state_dict(sd)
         return self.state
 
     def _to_device(self, batch: dict) -> dict:
@@ -125,7 +169,8 @@ class Trainer:
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(epoch)
         gen = _generator(cfg.seed, 1, epoch)
-        batches = epoch_indices(gen, len(self.dataset), cfg.train.batch_size)
+        batches = epoch_indices(gen, len(self.dataset), cfg.train.batch_size,
+                                self.shard_count, self.shard_index)
         if steps is not None:
             batches = batches[:steps]
         opt_pose = (cfg.train.enable_pose
@@ -159,16 +204,19 @@ class Trainer:
         return self.state
 
     def test_epoch(self, epoch: int, max_batches: int | None = None):
-        """Full-coverage eval: every test sample once, in order; the last
-        batch's padding is masked out of the accumulator."""
+        """Full-coverage eval of the test set: every sample once, in
+        order, sharded over the group; the padding is masked out of the
+        accumulator, and the ranks' tables are merged before the
+        summary."""
         cfg = self.cfg
         acc = PerObjectAccumulator(cfg.module.num_cls)
-        batches, valid = eval_indices(len(self.dataset),
-                                      cfg.train.batch_size)
+        batches, valid = eval_indices(len(self.test_dataset),
+                                      cfg.train.batch_size,
+                                      self.shard_count, self.shard_index)
         if max_batches is not None:
             batches, valid = batches[:max_batches], valid[:max_batches]
         solve_gen = _generator(cfg.seed, 2, epoch, self.device)
-        stream = prefetched_epoch(self.dataset, batches,
+        stream = prefetched_epoch(self.test_dataset, batches,
                                   _generator(cfg.seed, 3, epoch),
                                   cfg.data.input_size, cfg.data.num_points)
         try:
@@ -181,7 +229,7 @@ class Trainer:
                             for k, v in out.items() if v.ndim == 1})
         finally:
             stream.close()
-        summary = acc.summary()
+        summary = acc.all_reduce_across_processes().summary()
         mean_dis = summary["overall"].get("add_dis", float("inf"))
         self.eval_log.log(self.state.step,
                           {"epoch": epoch, **summary["overall"]}, echo=True)

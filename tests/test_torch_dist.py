@@ -1,0 +1,579 @@
+"""The port's multi-process training (parallel/dist.py and the modules it
+reaches) on the CPU: gloo groups of 2 and 4 ranks spawned with
+torch.multiprocessing on a FileStore under tmp_path (the ranks run
+tests/torch_dist_worker.py), the tiny config of the verify recipe (fp32),
+two spawns in all:
+
+  the shard arithmetic: JAX's TestShardBatchCountArithmetic on the port's
+      epoch_indices / eval_indices, counts equal to JAX's;
+  two ranks of bs 4 against the JAX package's train_step
+      (parallel/train_step.py:build_train_step) at the global batch of 8,
+      for GroupNorm and for module.norm="bn" with train.refine, the
+      training draws injected in both (the PoolLayer permutations, TBase's
+      dropout mask, the RANSAC subsets): the halves' valid-pixel counts
+      differ; both ranks end bit for bit equal; loss terms at rtol 5e-3
+      (measured 1.3e-4) and parameters at 1e-4 x max(1, max|ref|) on the
+      pose branch and 1e-3 upstream of it (test_torch_train.py's opt_pose
+      tolerances; measured 5.9e-7), running statistics at 1e-5
+      upstream of the pose branch (test_torch_train_options.py's first
+      step; measured 1.0e-6) and 1e-3 in it (its later steps' tolerance;
+      measured 7.3e-4: the max-over-neighbour flips that loosen the
+      parameters there). The refine variant runs on W.posed_batch, whose
+      2-D points are a pose's projections of the model's own points: on
+      the random model's raw points RANSAC ties on inlier counts and one
+      process of the port and the JAX step already differ by 25% in
+      loss_refine (4.25 against 5.30);
+  two ranks against the port's one process at bs 8, the generator's own
+      draws seeded alike, two steps: loss terms and gradient norm at rtol
+      1e-5, parameters and statistics at 1e-5 x max(1, max|ref|), the
+      generator state equal (the global-batch draws keep the ranks'
+      generators with one process's). GroupNorm in fp32 (measured: the
+      gradient norm equal, the rest within 7.3e-8); BatchNorm + refine in
+      fp64 (measured 1.1e-7: the solvers' fp32 parts), because the tiny BN model's fp32 gradient is ill-conditioned
+      (test_torch_train_options.py): in fp32 the mean of the ranks' means
+      and the one mean differ in the last bit, and the gradient norms of
+      two ranks and of one process then differ by 2.4% while the
+      parameters agree to 1e-4 (test_batchnorm_conditioning); in fp64
+      the gradient norms are equal;
+  masked means with different valid counts on the two ranks: value and
+      gradient against the JAX package's masked_mean of the whole batch
+      at 1e-6;
+  the eval merge against JAX's PerObjectAccumulator fed the union;
+  the trainer on tests/mp_worker.py's uneven shards (15 train / 9 test,
+      bs 4): one step on each rank, the merged eval counts 9, rank 0 alone
+      writes, and a checkpoint one rank finds and the other does not is
+      loaded by neither;
+  ring_min_dists / ring_knn on 2 and 4 ranks against the JAX ring on the
+      8-device CPU mesh (tests/test_ring_pointops.py's atol 1e-4; the
+      indices equal);
+  a group of one against no group, bit for bit, in this process.
+"""
+
+import importlib
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+import torch_dist_worker as W
+from pose_estimation_tpu.configs import schema as jschema
+from pose_estimation_tpu.core import pointops as jpo
+from pose_estimation_tpu.core.solvers import pnp as jpnp
+from pose_estimation_tpu.data import batching as jbatching
+from pose_estimation_tpu.data.synthetic import SyntheticPoseDataset
+from pose_estimation_tpu.metrics import metric as jmetric
+from pose_estimation_tpu.models.krrn import KRRN as JKRRN
+from pose_estimation_tpu.parallel import train_step as jstep
+from pose_estimation_tpu.parallel.mesh import make_mesh
+from pose_estimation_tpu.parallel.ring_pointops import (
+    ring_knn as jring_knn, ring_min_dists as jring_min_dists)
+from pose_estimation_tpu.train import optim as joptim
+from pose_estimation_tpu.train.state import TrainState as JTrainState
+from pose_estimation_tpu_torch import convert
+from pose_estimation_tpu_torch.configs import schema
+from pose_estimation_tpu_torch.data import batching
+from pose_estimation_tpu_torch.parallel import dist
+
+jmap_loss = importlib.import_module("pose_estimation_tpu.losses.map_loss")
+
+torch.set_num_threads(1)
+
+GLOBAL_BS = 8
+SPAWN_TIMEOUT_S = 600
+POSE_PREFIXES = ("FusionNetLite_0/", "PoseNet_0/")
+
+
+# --- the shard arithmetic ---------------------------------------------------------
+
+def _gen():
+    return torch.Generator().manual_seed(0)
+
+
+@pytest.mark.parametrize("n", [7, 9, 15, 33, 100, 257])
+def test_equal_train_batch_counts_across_shards(n):
+    for bs in (1, 2, 4, 8):
+        for shards in (1, 2, 3, 5, 8):
+            counts = {batching.epoch_indices(_gen(), n, bs, shards,
+                                             i).shape[0]
+                      for i in range(shards)}
+            want = jbatching.epoch_indices(jax.random.PRNGKey(0), n, bs,
+                                           shards, 0).shape[0]
+            assert counts == {want}, (n, bs, shards, counts, want)
+
+
+@pytest.mark.parametrize("n", [1, 7, 9, 15, 33, 100, 257])
+def test_equal_eval_batch_counts_across_shards(n):
+    for bs in (1, 2, 4, 8):
+        for shards in (1, 2, 3, 5, 8):
+            for i in range(shards):
+                ids, valid = batching.eval_indices(n, bs, shards, i)
+                ref = jbatching.eval_indices(n, bs, shards, i)
+                np.testing.assert_array_equal(ids, ref[0])
+                np.testing.assert_array_equal(valid, ref[1])
+
+
+@pytest.mark.parametrize("n", [1, 9, 15, 100])
+def test_eval_covers_every_sample_exactly_once(n):
+    for bs in (1, 4, 8):
+        for shards in (1, 2, 3):
+            seen = []
+            for i in range(shards):
+                ids, valid = batching.eval_indices(n, bs, shards, i)
+                seen.append(ids.reshape(-1)[valid.reshape(-1)])
+            np.testing.assert_array_equal(np.sort(np.concatenate(seen)),
+                                          np.arange(n))
+
+
+def test_deadlock_configs():
+    """The VERDICT r3 configurations: n=9, bs=4, 2 shards gave 2 vs 1 eval
+    batches, and n=15 train 2 vs 1, under per-shard arithmetic."""
+    assert [batching.eval_indices(9, 4, 2, i)[0].shape[0]
+            for i in (0, 1)] == [2, 2]
+    assert [batching.epoch_indices(_gen(), 15, 4, 2, i).shape[0]
+            for i in (0, 1)] == [1, 1]
+
+
+def test_train_shards_disjoint_and_one_shard_unchanged():
+    """The shards interleave one permutation; one shard is the whole of
+    it, as before shards existed."""
+    perm = torch.randperm(100, generator=_gen()).numpy()
+    a = batching.epoch_indices(_gen(), 100, 4, 2, 0)
+    b = batching.epoch_indices(_gen(), 100, 4, 2, 1)
+    assert not set(a.reshape(-1)) & set(b.reshape(-1))
+    np.testing.assert_array_equal(a.reshape(-1), perm[0::2][:48])
+    np.testing.assert_array_equal(b.reshape(-1), perm[1::2][:48])
+    np.testing.assert_array_equal(batching.epoch_indices(_gen(), 100, 8),
+                                  perm[:96].reshape(12, 8))
+
+
+# --- without a group --------------------------------------------------------------
+
+def test_no_group_is_one_rank(monkeypatch):
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    assert dist.distributed_init() is False
+    assert not dist.is_initialized()
+    assert (dist.world_size(), dist.rank(), dist.is_primary()) == (1, 0, True)
+    x = torch.arange(6.0).reshape(3, 2)
+    assert dist.rank_rows(x) is x
+    assert dist.draw_rows(lambda s: torch.zeros(s), (3, 2)).shape == (3, 2)
+    assert dist.all_reduce_mean([x])[0] is x
+    np.testing.assert_array_equal(dist.all_gather_array(np.arange(3)),
+                                  [[0, 1, 2]])
+    with pytest.raises(ValueError, match="go together"):
+        dist.distributed_init("gloo", "file:///nowhere", world_size=2)
+
+
+@pytest.mark.parametrize("mesh,field", [
+    (schema.MeshConfig(), None), (schema.MeshConfig(data=1), None),
+    (schema.MeshConfig(data=2), "mesh.data=2"),
+    (schema.MeshConfig(model=2), "mesh.model=2"),
+    (schema.MeshConfig(dcn=2), "mesh.dcn=2")])
+def test_check_mesh_names_the_field(mesh, field):
+    if field is None:
+        dist.check_mesh(mesh)
+    else:
+        with pytest.raises(ValueError, match=field):
+            dist.check_mesh(mesh)
+
+
+# --- the spawned groups ----------------------------------------------------------
+
+def _spawn(world, tasks, payload, tmp):
+    """Run `tasks` on `world` gloo ranks; {task: [result of each rank]}.
+    A rank that raises fails the test (and stops the others)."""
+    payload = dict(payload, out_dir=str(tmp))
+    ctx = mp.start_processes(W.run, args=(world, str(tmp / "store"), tasks,
+                                          payload),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    while not ctx.join(timeout=2):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"{world} ranks did not finish {tasks} in "
+                        f"{SPAWN_TIMEOUT_S} s")
+    return {t: [torch.load(tmp / f"{t}_{r}.pt", weights_only=False)
+                for r in range(world)] for t in tasks}
+
+
+def _ring_payload():
+    rng = np.random.RandomState(0)
+    return {"tgt": rng.randn(32, 3).astype(np.float32),
+            "src": rng.randn(48, 3).astype(np.float32),
+            "pts": rng.randn(32, 3).astype(np.float32), "k": 4}
+
+
+@pytest.fixture(scope="module")
+def jbatch():
+    ds = SyntheticPoseDataset(num_objects=2, frames_per_object=4,
+                              im_h=240, im_w=320, num_regions=8)
+    return {k: np.asarray(v) for k, v in jbatching.make_batch(
+        ds, list(range(GLOBAL_BS)), jax.random.PRNGKey(0), 64, 128).items()}
+
+
+def _eval_feeds():
+    rng = np.random.RandomState(5)
+
+    def feed(n):
+        return (rng.choice([0, 1, 3], n),
+                {"add_dis": (rng.rand(n) * 0.15).astype(np.float32),
+                 "add_ok": (rng.rand(n) > 0.5).astype(np.float32)})
+
+    return [[feed(5), feed(3)], [feed(4)]]
+
+
+def _masked_payload():
+    rng = np.random.RandomState(3)
+    dens = np.array([0.2, 0.3, 0.7, 0.9])[:, None, None]
+    return {"pp": rng.randn(4, 6, 6).astype(np.float32),
+            "valid": rng.rand(4, 6, 6) < dens,
+            "pred": rng.randn(4, 6, 6, 3).astype(np.float32),
+            "target": rng.randn(4, 6, 6, 3).astype(np.float32)}
+
+
+@pytest.fixture(scope="module")
+def posed(jbatch):
+    return W.posed_batch(jbatch, "bn_refine")
+
+
+def _batch(variant, jbatch, posed):
+    return posed if variant == "bn_refine" else jbatch
+
+
+@pytest.fixture(scope="module")
+def two(jbatch, posed, tmp_path_factory):
+    payload = {"batch": jbatch, "posed_batch": posed,
+               "eval_feeds": _eval_feeds(),
+               **_masked_payload(), **_ring_payload()}
+    return _spawn(2, list(W.TASKS), payload, tmp_path_factory.mktemp("two"))
+
+
+@pytest.fixture(scope="module")
+def four(tmp_path_factory):
+    return _spawn(4, ["ring"], _ring_payload(),
+                  tmp_path_factory.mktemp("four"))
+
+
+def _nest(flat: dict) -> dict:
+    tree = {}
+    for k, v in flat.items():
+        node = tree
+        *path, leaf = k.split("/")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(v)
+    return tree
+
+
+def _rel_err(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(got - ref).max()) / max(1.0, float(np.abs(ref).max()))
+
+
+def _hold(got: dict, ref: dict, tol, what=""):
+    assert sorted(got) == sorted(ref), what
+    worst = 0.0
+    for k in ref:
+        t = tol(k) if callable(tol) else tol
+        err = _rel_err(got[k], ref[k])
+        worst = max(worst, err)
+        assert err <= t, (what, k, err, t)
+    return worst
+
+
+def _same_on_every_rank(results):
+    first = results[0]
+    for other in results[1:]:
+        assert other["metrics"] == first["metrics"]
+        for tree in ("params", "stats"):
+            assert sorted(other[tree]) == sorted(first[tree])
+            for k, v in first[tree].items():
+                np.testing.assert_array_equal(other[tree][k], v, err_msg=k)
+    return first
+
+
+def test_halves_have_different_valid_counts(jbatch):
+    counts = jbatch["valid"].reshape(2, -1).sum(1)
+    assert counts[0] != counts[1], counts
+
+
+def _jax_step_injected(variant, jbatch, monkeypatch):
+    """The JAX package's train_step at the global batch with the test's
+    draws: jax.random.permutation (the PoolLayers, in call order),
+    jax.random.bernoulli (flax's Dropout) and pnp._minimal_subsets (the
+    refine loss's RANSAC, matched to its instance by its key) return
+    them while the step is traced."""
+    port_state, _ = W.port_setup(variant)
+    params, stats = convert.flax_trees(port_state.model)
+    jcfg = W.config(jschema, variant)
+    tx = joptim.make_optimizer(jcfg, total_steps=W.TOTAL_STEPS)
+    state = JTrainState.create(_nest(params), tx, jax.random.PRNGKey(0),
+                               batch_stats=_nest(stats) if stats else None)
+    b, n = GLOBAL_BS, jbatch["cloud"].shape[1]
+    keep, sub = W.keep_mask((b, n, 256)), W.subsets(b, 8, 128)
+    rng, _ = jax.random.split(state.rng)
+    keys = jax.random.split(jax.random.fold_in(
+        jax.random.fold_in(rng, 0), 2), b)
+    calls = [0]
+
+    def permutation(key, x, *args, **kw):
+        calls[0] += 1
+        return jnp.asarray(W.pool_perm(calls[0] - 1, int(x)))
+
+    def bernoulli(key, p=0.5, shape=None):
+        assert tuple(shape) == keep.shape, shape
+        return jnp.asarray(keep)
+
+    def minimal_subsets(key, n_pts, num, num_subsets, mask):
+        i = jnp.argmax(jnp.all(keys == key[None], axis=-1))
+        return jnp.asarray(sub, jnp.int32)[i]
+
+    monkeypatch.setattr(jax.random, "permutation", permutation)
+    monkeypatch.setattr(jax.random, "bernoulli", bernoulli)
+    monkeypatch.setattr(jpnp, "_minimal_subsets", minimal_subsets)
+    step = jstep.build_train_step(JKRRN(cfg=jcfg), tx, jcfg)
+    new, metrics = step(state, {k: jnp.asarray(v) for k, v in jbatch.items()},
+                        opt_pose=True)
+    assert calls[0] == 5
+    return new, {k: float(v) for k, v in metrics.items()}
+
+
+def _pose_leaf(key):
+    return key.startswith(POSE_PREFIXES)
+
+
+@pytest.mark.parametrize("variant", list(W.VARIANTS))
+def test_two_ranks_match_jax_at_the_global_batch(two, jbatch, posed, variant,
+                                                 monkeypatch):
+    got = _same_on_every_rank(two[f"injected_{variant}"])
+    ref, ref_m = _jax_step_injected(variant, _batch(variant, jbatch, posed),
+                                    monkeypatch)
+    assert got["metrics"]["skipped_nonfinite"] == ref_m["skipped_nonfinite"]
+    for k, v in ref_m.items():
+        np.testing.assert_allclose(got["metrics"][k], v, rtol=5e-3,
+                                   atol=1e-5, err_msg=k)
+    _hold(got["params"], convert.flatten_tree(ref.params),
+          lambda k: 1e-4 if _pose_leaf(k) else 1e-3, "params")
+    if variant == "bn_refine":
+        _hold(got["stats"], convert.flatten_tree(ref.batch_stats),
+              lambda k: 1e-3 if _pose_leaf(k) else 1e-5, "batch_stats")
+    assert got["step"] == int(ref.step) == 1
+
+
+@pytest.mark.parametrize("variant", list(W.VARIANTS))
+def test_two_ranks_match_one_process(two, jbatch, posed, variant):
+    got = two[f"seeded_{variant}"]
+    for r in got:
+        assert len(r["steps"]) == 2
+    dtype = torch.float64 if variant == "bn_refine" else torch.float32
+    ref = W.step_seeded(variant, _batch(variant, jbatch, posed),
+                        dtype=dtype)["steps"]
+    for i, want in enumerate(ref):
+        g = _same_on_every_rank([r["steps"][i] for r in got])
+        assert sorted(g["metrics"]) == sorted(want["metrics"])
+        for k, v in want["metrics"].items():
+            np.testing.assert_allclose(g["metrics"][k], v, rtol=1e-5,
+                                       atol=1e-6, err_msg=f"step {i} {k}")
+        _hold(g["params"], want["params"], 1e-5, f"step {i} params")
+        _hold(g["stats"], want["stats"], 1e-5, f"step {i} stats")
+        assert torch.equal(g["generator"], want["generator"])
+        assert g["step"] == want["step"] == i + 1
+
+
+def test_batchnorm_conditioning(two, jbatch, posed, capsys):
+    """Why the BatchNorm comparisons hold what they hold (PERF.md §6, PR
+    9), printed with -s: the BN model's fp32 gradient is ill-conditioned
+    (one process's fp32 norm more than 1% off its fp64 one, two ranks'
+    fp32 norm off one process's by more than 0.1%, while in fp64 they are
+    equal, test_two_ranks_match_one_process); in bf16 the BatchNorms
+    spread the last bit between the mean of two means and one mean into
+    most of the activations and xyz_emb by more than 1%."""
+    got = two["bn_conditioning"]
+    ref32 = W.bn_conditioning(posed)
+    ref64 = W.bn_conditioning(posed, torch.float64)
+    n32, n64, n2 = ref32["grad_norm"], ref64["grad_norm"], got[0][
+        "grad_norm"]
+    assert got[1]["grad_norm"] == n2
+    outs = [torch.cat([a, b]) for a, b in zip(got[0]["bn_outputs"],
+                                              got[1]["bn_outputs"])]
+    differ = [float((o != r).float().mean())
+              for o, r in zip(outs, ref32["bn_outputs"])]
+    x2 = torch.cat([r["xyz_emb"] for r in got])
+    dx = float((x2 - ref32["xyz_emb"]).abs().max()
+               / ref32["xyz_emb"].abs().max())
+    with capsys.disabled():
+        print(f"\nBN + refine gradient norm: fp64 {n64:.6f}, fp32 one "
+              f"process {n32:.6f} ({abs(n32 - n64) / n64:.2%} off), fp32 "
+              f"two ranks {n2:.6f} ({abs(n2 - n32) / n32:.2%} off one "
+              f"process); bf16 activations differing, BatchNorm 0 / 8 / "
+              f"48 / last: {differ[0]:.2e} / {differ[8]:.3f} / "
+              f"{differ[48]:.3f} / {differ[-1]:.3f}; xyz_emb {dx:.2%}")
+    assert abs(n32 - n64) / n64 > 1e-2 and abs(n2 - n32) / n32 > 1e-3
+    assert differ[0] < 1e-3 < 0.5 < differ[48] and dx > 1e-2
+
+
+def test_refine_on_a_random_models_points_is_ill_posed(jbatch,
+                                                       monkeypatch,
+                                                       capsys):
+    """Why the refine comparisons run on W.posed_batch: on the raw batch
+    RANSAC's hypotheses tie on the random model's points, and one process
+    of the port and the JAX step, with the same injected draws, differ in
+    loss_refine by more than 5% (printed with -s); on the posed batch
+    they agree (test_two_ranks_match_jax_at_the_global_batch)."""
+    got = W.step_injected("bn_refine", jbatch)["metrics"]["loss_refine"]
+    _, ref = _jax_step_injected("bn_refine", jbatch, monkeypatch)
+    with capsys.disabled():
+        print(f"\nloss_refine on the raw batch: port {got:.6f}, JAX "
+              f"{ref['loss_refine']:.6f}")
+    assert abs(got - ref["loss_refine"]) > 5e-2 * abs(ref["loss_refine"])
+
+
+def test_masked_means_over_the_group(two):
+    p = _masked_payload()
+    got = two["masked_means"]
+    assert got[0]["counts"] == got[1]["counts"]
+    assert got[0]["counts"][0] != got[0]["counts"][1]
+    valid = jnp.asarray(p["valid"], jnp.float32)
+    cases = {
+        "masked_mean": (p["pp"], lambda x: jmap_loss.masked_mean(x, valid)),
+        "l1": (p["pred"], lambda x: jmap_loss.map_loss(
+            "l1", x, jnp.asarray(p["target"]), valid))}
+    for name, (x, fn) in cases.items():
+        val, grad = jax.value_and_grad(fn)(jnp.asarray(x))
+        for r in got:
+            assert r[name] == got[0][name]
+            np.testing.assert_allclose(r[name], float(val), rtol=1e-6)
+        np.testing.assert_allclose(
+            np.concatenate([r[name + "_grad"] for r in got]),
+            np.asarray(grad), rtol=1e-6, atol=1e-9)
+
+
+def test_eval_merge_matches_jax_on_the_union(two):
+    ref = jmetric.PerObjectAccumulator(4)
+    for rank_feeds in _eval_feeds():
+        for cls, metrics in rank_feeds:
+            ref.update(cls, metrics)
+    want = ref.summary()
+    for r in two["eval_merge"]:
+        got = r["summary"]
+        assert got["overall"]["count"] == want["overall"]["count"] == 12
+        assert sorted(got["per_object"]) == sorted(want["per_object"])
+        for c, row in want["per_object"].items():
+            assert got["per_object"][c] == pytest.approx(row, rel=1e-12)
+        assert got["overall"] == pytest.approx(want["overall"], rel=1e-12)
+
+
+def test_trainer_on_uneven_shards(two):
+    r0, r1 = two["trainer"]
+    assert r0["train_steps"] == r1["train_steps"] == 1
+    for r in (r0, r1):
+        assert r["summary"]["overall"]["count"] == 9
+        assert sum(v["count"] for v in r["summary"]["per_object"].values()
+                   ) == 9
+        assert r["summary"] == r0["summary"]
+        assert r["lr"] == r0["lr"]
+    # the LR horizon is the steps of one shard: 15 // (4 x 2) = 1
+    from pose_estimation_tpu_torch.train.optim import make_schedule
+    cfg = schema.override(W.config(schema, "gn"),
+                          **{"module.num_cls": 3, "train.num_epoch": 1})
+    sched = make_schedule(cfg, total_steps=1)
+    assert r0["lr"] == [float(sched(i)) for i in range(6)]
+    assert r0["files"] == ["eval.jsonl", "train.jsonl"] and r1["files"] == []
+    assert r0["ckpt_steps"] == [1] and r1["ckpt_steps"] == []
+    assert r0["restored_step"] == r1["restored_step"] == 0
+    for r in (r0, r1):
+        assert "starting fresh" in r["printed"]
+
+
+def _jax_ring(payload):
+    mesh = make_mesh()
+    with mesh:
+        dmin = np.asarray(jring_min_dists(mesh)(jnp.asarray(payload["tgt"]),
+                                                jnp.asarray(payload["src"])))
+        kd, ki = jring_knn(mesh, payload["k"])(jnp.asarray(payload["pts"]))
+    return dmin, np.asarray(kd), np.asarray(ki)
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_ring_ops_match_jax(two, four, ranks):
+    p = _ring_payload()
+    got = (two if ranks == 2 else four)["ring"]
+    dmin, kd, ki = _jax_ring(p)
+    cat = {k: np.concatenate([r[k] for r in got]) for k in got[0]}
+    np.testing.assert_allclose(cat["min_dists"], dmin, atol=1e-4)
+    np.testing.assert_allclose(cat["min_dists"], np.asarray(jpo.min_dists(
+        jnp.asarray(p["tgt"])[None], jnp.asarray(p["src"])[None])[0]),
+                               atol=1e-4)
+    np.testing.assert_allclose(cat["knn_dists"], kd, atol=1e-4)
+    np.testing.assert_array_equal(cat["knn_idx"], ki)
+    np.testing.assert_array_equal(cat["knn_idx"], np.asarray(
+        jpo.knn_indices(jnp.asarray(p["pts"])[None], p["k"])[0]))
+    assert not np.any(cat["knn_idx"] == np.arange(32)[:, None])
+
+
+# --- a group of one ---------------------------------------------------------------
+
+@pytest.mark.parametrize("variant", list(W.VARIANTS))
+def test_group_of_one_is_no_group(jbatch, posed, variant, tmp_path):
+    """Every collective of a group of one is an identity and the
+    arithmetic around it exact: two steps give the same bits."""
+    batch = {k: v[:4] for k, v in _batch(variant, jbatch, posed).items()}
+    want = W.step_seeded(variant, batch)["steps"]
+    assert dist.distributed_init("gloo", f"file://{tmp_path / 'store'}", 1,
+                                 0)
+    try:
+        assert dist.world_size() == 1 and dist.is_initialized()
+        got = W.step_seeded(variant, batch)["steps"]
+    finally:
+        dist.destroy()
+    assert not dist.is_initialized()
+    for g, w in zip(got, want):
+        assert g["metrics"] == w["metrics"]
+        for tree in ("params", "stats"):
+            for k, v in w[tree].items():
+                np.testing.assert_array_equal(g[tree][k], v, err_msg=k)
+        assert torch.equal(g["generator"], w["generator"])
+
+
+def test_cli_under_torchrun(tmp_path):
+    """torchrun --standalone --nproc_per_node=2 -m
+    pose_estimation_tpu_torch.cli on the CPU (gloo): distributed_init
+    from torchrun's environment; 10 synthetic frames at bs 2 a rank are 2
+    steps on each; rank 0 alone writes the logs, one eval line counting
+    every frame once, and the checkpoint."""
+    import json
+    import os
+    import subprocess
+    import sys
+    cfg = tmp_path / "tiny.py"
+    cfg.write_text(
+        "from pose_estimation_tpu_torch.configs import schema\n"
+        "import torch_dist_worker as W\n"
+        "def get_config():\n"
+        "    return schema.override(W.config(schema, 'gn'), **{\n"
+        "        'train.batch_size': 2, 'train.start_pose_epoch': 0})\n")
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([os.path.dirname(W.__file__),
+                                           os.environ.get("PYTHONPATH", "")]))
+    run = tmp_path / "run"
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=2", "-m", "pose_estimation_tpu_torch.cli",
+         "--config", str(cfg), "--synthetic", "--debug", "--epochs", "1",
+         "--frames_per_object", "5", "--log_dir", str(run), "--device",
+         "cpu"], env=env, capture_output=True, text=True,
+        timeout=SPAWN_TIMEOUT_S)
+    assert out.returncode == 0, out.stderr[-3000:]
+    train = [json.loads(x) for x in (run / "train.jsonl").read_text()
+             .splitlines()]
+    evals = [json.loads(x) for x in (run / "eval.jsonl").read_text()
+             .splitlines()]
+    assert [r["step"] for r in train] == [1] and train[0]["loss_add"] > 0
+    assert len(evals) == 1 and evals[0]["count"] == 10
+    assert out.stdout.count('"add_dis"') == 1
+    assert sorted(os.listdir(run / "ckpt")) == ["2"]

@@ -833,3 +833,99 @@ def test_pnp_implicit_backward_on_the_card_matches_the_cpu(dev):
     for ref, got in zip(*grads):
         assert torch.isfinite(got).all()
         assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
+
+
+def _group_step(norm, dev):
+    """One train step of the tiny model (`norm`) from a seeded state:
+    its metrics and the updated parameters."""
+    from pose_estimation_tpu_torch.train.optim import make_optimizer
+    from pose_estimation_tpu_torch.train.state import TrainState
+    from pose_estimation_tpu_torch.train.train_step import build_train_step
+    cfg = schema.override(TINY, **{"module.norm": norm,
+                                   "train.batch_size": 2})
+    torch.manual_seed(0)
+    model = KRRN(cfg).to(dev)
+    tx = make_optimizer(cfg, total_steps=10)
+    state = TrainState.create(model, tx,
+                              torch.Generator(device=dev).manual_seed(0))
+    m = build_train_step(model, tx, cfg)(state, _synthetic_batch(dev),
+                                         opt_pose=True)
+    return ({k: v.item() for k, v in m.items()},
+            {k: p.detach().clone() for k, p in model.named_parameters()})
+
+
+def _step_delta(a, b):
+    """(bit for bit, {metric: |delta| / max(1, |a|)}, parameters' max
+    rel |delta|)."""
+    (ma, pa), (mb, pb) = a, b
+    dp = max((v - pb[k]).abs().max().item() / max(1.0, v.abs().max().item())
+             for k, v in pa.items())
+    return (ma == mb and dp == 0.0,
+            {k: abs(v - mb[k]) / max(1.0, abs(v)) for k, v in ma.items()},
+            dp)
+
+
+@pytest.fixture
+def deterministic():
+    """PyTorch's deterministic algorithms where it has them (warnings
+    where it has none), cuDNN's deterministic ones; restored after."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+    torch.backends.cudnn.deterministic = saved[2]
+
+
+@pytest.mark.parametrize("norm", ["gn", "bn"])
+def test_nccl_group_of_one_step_equals_no_group(dev, tmp_path, norm,
+                                                deterministic):
+    """A train step in a 1-process NCCL group against one without a group,
+    from the same state (after a warm-up step): bit for bit where two
+    steps without a group are. Where they are not (a backward that
+    accumulates with atomics), each metric within 4x the two steps' own
+    spread (at least 1e-6, and 1e-3 for the gradient norm, which varied
+    by up to 3.8e-4 from run to run in chip_smoke.py phase 14) and the
+    updated parameters within 1e-5 (Ranger's normalised update)."""
+    from pose_estimation_tpu_torch.parallel import dist
+    _group_step(norm, dev)                               # warm-up
+    ref = _group_step(norm, dev)
+    same_twice, spread, _ = _step_delta(ref, _group_step(norm, dev))
+    assert dist.distributed_init("nccl", f"file://{tmp_path / 'store'}", 1,
+                                 0)
+    try:
+        got = _group_step(norm, dev)
+    finally:
+        dist.destroy()
+    same, delta, dp = _step_delta(ref, got)
+    if same_twice:
+        assert same, (delta, dp)
+    else:
+        floor = {"grad_norm": 1e-3}
+        assert all(v <= max(4 * spread[k], floor.get(k, 1e-6))
+                   for k, v in delta.items()), (spread, delta)
+        assert dp <= 1e-5, dp
+
+
+def test_ring_ops_on_one_rank_equal_the_kernels(dev, tmp_path):
+    """A 1-process NCCL group: ring_min_dists is kernel 4's nearest
+    distance bit for bit, ring_knn's indices are the KNN kernel's."""
+    from pose_estimation_tpu_torch.parallel import dist
+    from pose_estimation_tpu_torch.parallel.ring_pointops import (
+        ring_knn, ring_min_dists)
+    g = torch.Generator(device=dev).manual_seed(3)
+    tgt, src, pts = (torch.rand(n, 3, generator=g, device=dev)
+                     for n in (700, 900, 600))
+    assert dist.distributed_init("nccl", f"file://{tmp_path / 'store'}", 1,
+                                 0)
+    try:
+        d = ring_min_dists()(tgt, src)
+        kd, ki = ring_knn(None, 10)(pts)
+    finally:
+        dist.destroy()
+    assert torch.equal(d, pointops.nearest(tgt[None], src[None])[0][0])
+    assert torch.equal(ki, pointops.knn(pts[None], pts[None], 10, True)[0])
+    direct = ((pts[ki.long()] - pts[:, None]) ** 2).sum(-1).sqrt()
+    torch.testing.assert_close(kd, direct, rtol=0, atol=1e-5)
