@@ -109,6 +109,31 @@ Phases (each raises on failure, the script then exits non-zero):
      BatchNorm); the sharded eval of the 9 frames (shards of 5 and 4)
      merged, every frame counted once; (c) ring_min_dists and ring_knn
      over those two ranks against kernel 4 and KNN on the whole cloud;
+ 15. the transparent pipeline at schema.transparent_cleargrasp() (TRPESNet
+     on the UNet at 64-128-256-512-512, 256-px crops, 1000 points, 500
+     model points, 5 objects, bf16, bs=8, seeded weights, synthetic
+     frames): (a) kernel 4 at the confidence ADD(-S) loss's shape (B=8,
+     500,000 predicted points against 500) and at ICP's (256 against
+     500, eps = 0, a coincident pair at distance 0): distances and
+     indices bit for bit, the loss shape's backward at phase 3's
+     tolerance, the times, the bound and torch.cdist + min's time;
+     (b) one step's loss terms and gradient norm with the kernel
+     against the plain versions from the same state, batch and pixels
+     (2e-2 x max(1, |ref|)), launches a step exactly 0/0/0/1/0; (c) 30
+     steps on one batch at lr 3e-4 without warmup (finite, none
+     skipped, the last 5 losses' mean below the first), the step time,
+     its split, samples/s, the peak memory, the device's busy time over
+     3 profiled steps; (d) the eval step at bs 8 with ICP off and on
+     (launches 1 and 13: ADD-S, 10 ICP iterations, the two trimmed
+     residuals in one call, the refined ADD-S), the kernel path against
+     the plain path (add_dis, add_dis_icp at 1e-5, the accept flags
+     equal), frames/s; (e) the training CLI on the ClearGrasp fixture
+     (tests/golden/cleargrasp's two frames copied to 8 a split, the
+     shipped config: one step and one eval batch) and
+     tools/eval_transparent.py --ckpt from its checkpoint on the val
+     split, launches held; (f) the transparent trainer in a 1-process
+     NCCL group against no group, 2 steps: the first step's loss terms
+     bit for bit;
 and checks that nothing of JAX or of the JAX package was imported.
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -2175,6 +2200,435 @@ def multi_gpu_one_card(cfg, dev):
     paths["ring_2_ranks"] = ranks[0]["ring"]["launches"]
     return paths
 
+
+# ---------------------------------------------------------------------------
+# Phase 15: the transparent pipeline
+# ---------------------------------------------------------------------------
+
+NO_LAUNCH = dict.fromkeys(LITE_SERVE, 0)
+# launches per transparent train step (the symmetric chamfer), eval batch
+# (ADD-S) and eval batch with ICP (10 iterations, the two trimmed
+# residuals in one call, the refined pose's ADD-S)
+TRANSPARENT_TRAIN = dict(NO_LAUNCH, min_dists=1)
+TRANSPARENT_EVAL = dict(NO_LAUNCH, min_dists=1)
+ICP_ITERS = 10
+TRANSPARENT_EVAL_ICP = dict(NO_LAUNCH, min_dists=1 + ICP_ITERS + 1 + 1)
+ICP_POINTS = 256
+TRANSPARENT_STEPS = 30
+PLAIN_CHUNK = 1 << 16
+# the transparent fixture's objects with a symmetric chamfer in the loss
+TRANSPARENT_SYM = (0, 2)
+
+
+def _plain_min_dists_grads(t, s, w, chunk=PLAIN_CHUNK):
+    """Autograd through the plain expression sqrt(max(min_j d, eps^2))
+    of sum(min_dists(t, s) * w), in blocks of targets (a whole
+    500,000 x 500 graph would not fit): (d target, d source)."""
+    import torch
+    from pose_estimation_tpu_torch.ops import pointops
+    gt, gs = [], torch.zeros_like(s)
+    for tc, wc in zip(t.split(chunk, 1), w.split(chunk, 1)):
+        tc = tc.detach().requires_grad_()
+        sc = s.detach().requires_grad_()
+        d2 = pointops.sqdist(tc, sc).min(dim=-1).values
+        plain = torch.sqrt(torch.clamp(d2, min=1e-16))
+        a, b = torch.autograd.grad((plain * wc).sum(), (tc, sc))
+        gt.append(a)
+        gs += b
+    return torch.cat(gt, 1), gs
+
+
+def check_transparent_kernel(dev, g, b, n, m):
+    """Phase 15(a): kernel 4 at the transparent loss's shape (b x n
+    predicted points against b x m model points, one call a train step)
+    and at ICP's (ICP_POINTS observed points against the model, eps = 0,
+    with a coincident pair): distances and indices bit for bit against
+    the plain version, the loss shape's backward against autograd
+    through the plain expression (1e-3 x max(1, max|ref|), phase 3's),
+    the times, the bound and the library call's time (torch.cdist + min,
+    in the plain version's blocks)."""
+    import torch
+    from pose_estimation_tpu_torch.ops import pointops
+    t = _cloud(g, b, n, dev)
+    s = _cloud(g, b, m, dev)
+    got = pointops.nearest_multi(t, [s])[0]
+    ref = pointops.nearest_multi_plain(t, [s])[0]
+    err = (got[0] - ref[0]).abs().max().item()
+    same = torch.equal(got[1], ref[1])
+    t_k = cuda_ms(lambda: pointops.nearest_multi(t, [s]), reps=10)
+    t_p = cuda_ms(lambda: pointops.nearest_multi_plain(t, [s]), reps=3,
+                  warmup=1)
+    t_l = cuda_ms(lambda: [torch.cdist(tc, s).min(dim=-1)
+                           for tc in t.split(PLAIN_CHUNK, 1)], reps=3,
+                  warmup=1)
+    # per pair: dot (5), the norms' sum and -2 dot (3), one compare
+    b_ms, b_by = bound(nbytes(t, s) + b * n * 8, {"fp32": b * n * m * 9})
+    log(f"  kernel 4 at the loss's shape, B={b} {n}x{m} "
+        f"({b * n * m:.3e} pairs): max |err| {err:.3e}, indices equal "
+        f"{same}; kernel {t_k:.4f} ms ({b * n * m / t_k * 1e3:.3e} "
+        f"pairs/s), plain {t_p:.4f} ms, cdist + min {t_l:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
+    if not (err == 0.0 and same):
+        raise AssertionError(f"kernel 4 at {n}x{m}: {err}, {same}")
+    tg = t.clone().requires_grad_()
+    sg = s.clone().requires_grad_()
+    w = torch.rand((b, n), generator=g, device=dev)
+    gk = torch.autograd.grad((pointops.min_dists(tg, sg) * w).sum(),
+                             (tg, sg))
+    gp = _plain_min_dists_grads(t, s, w)
+    worst = 0.0
+    for name, a, r in zip(("target", "source"), gk, gp):
+        e = (a - r).abs().max().item()
+        tol = 1e-3 * max(1.0, r.abs().max().item())
+        log(f"  its backward, {name} gradient: max |err| {e:.3e} (tol "
+            f"{tol:.3e})")
+        if not e <= tol:
+            raise AssertionError(f"kernel 4 backward {name}: {e} > {tol}")
+        worst = max(worst, e)
+    del tg, sg, gk, gp, w
+    ti = _cloud(g, b, ICP_POINTS, dev)
+    ti[0, 0] = s[0, 7]
+    got = pointops.nearest_multi(ti, [s, s.flip(1).contiguous()], eps=0.0)
+    ref = pointops.nearest_multi_plain(ti, [s, s.flip(1).contiguous()],
+                                       eps=0.0)
+    e_i = max((a[0] - r[0]).abs().max().item() for a, r in zip(got, ref))
+    same_i = all(torch.equal(a[1], r[1]) for a, r in zip(got, ref))
+    zero = got[0][0][0, 0].item()
+    t_i = cuda_ms(lambda: pointops.nearest(ti, s, eps=0.0))
+    log(f"  kernel 4 at ICP's shape, B={b} {ICP_POINTS}x{m}, eps = 0, two "
+        f"clouds: max |err| {e_i:.3e}, indices equal {same_i}, the "
+        f"coincident pair's distance {zero}; one cloud {t_i:.4f} ms")
+    if not (e_i == 0.0 and same_i and zero == 0.0):
+        raise AssertionError(f"kernel 4 at eps = 0: {e_i}, {same_i}, {zero}")
+    del t, s
+    torch.cuda.empty_cache()
+    return {"shape": f"B={b}, {n} x {m}", "max_abs_err": worst, "ms": t_k,
+            "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": t_l, "icp_ms": t_i}
+
+
+def _transparent_dataset(cfg, frames_per_object=2):
+    """A cached SyntheticTransparentDataset of the config's objects (480 x
+    640 frames, TRANSPARENT_SYM symmetric)."""
+    from pose_estimation_tpu_torch.data.synthetic import (
+        SyntheticTransparentDataset)
+    return SyntheticTransparentDataset(
+        num_objects=cfg.module.num_cls, frames_per_object=frames_per_object,
+        num_regions=cfg.data.num_regions, sym_objects=TRANSPARENT_SYM,
+        cache_frames=True)
+
+
+def _transparent_setup(cfg, dev):
+    """The config's TRPESNet (seeded weights) and its train step at lr
+    3e-4 without warmup: (state, step)."""
+    import torch
+    from pose_estimation_tpu_torch.configs import schema
+    from pose_estimation_tpu_torch.train.optim import make_optimizer
+    from pose_estimation_tpu_torch.train.state import TrainState
+    from pose_estimation_tpu_torch.train.transparent_trainer import (
+        TransparentTrainStep, build_model, loss_weights)
+    cfg = schema.override(cfg, **{"train.lr.lr": 3e-4,
+                                  "train.lr.warmup_iters": 0})
+    torch.manual_seed(0)
+    model = build_model(cfg, dev)
+    tx = make_optimizer(cfg, total_steps=1000)
+    state = TrainState.create(model, tx,
+                              torch.Generator(device=dev).manual_seed(0))
+    return state, TransparentTrainStep(model, tx, loss_weights(cfg))
+
+
+def _transparent_step_vs_plain(state, step, batch):
+    """Phase 15(b): every loss term and the gradient norm of one step
+    with the kernel against the plain versions, from the same state,
+    batch and pixels: 2e-2 x max(1, |ref|)."""
+    import torch
+    from pose_estimation_tpu_torch.train.transparent_trainer import (
+        draw_choose)
+    _, h, w, _ = batch["img"].shape
+    choose = draw_choose(torch.Generator(device=batch["img"].device)
+                         .manual_seed(1), h * w, step.model.num_points)
+
+    def terms():
+        losses = step.losses(batch, choose)
+        grads = step.gradients(losses)
+        out = {k: v.item() for k, v in losses.items()}
+        out["grad_norm"] = torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                          for g in grads.values())).item()
+        return out
+
+    terms()                                              # warm-up
+    got, ms_k = _sync_ms(terms)
+    with plain_kernels():
+        ref, ms_p = _sync_ms(terms)
+    errs = {k: abs(v - ref[k]) / max(1.0, abs(ref[k])) for k, v in got.items()}
+    log("  one step's forward + backward, kernel vs plain (same state, batch"
+        " and pixels): " + ", ".join(f"{k} {v:.6f} ({ref[k]:.6f})"
+                                     for k, v in got.items())
+        + f"; max rel |err| {max(errs.values()):.3e}; {ms_k:.1f} ms with the"
+        f" kernel, {ms_p:.1f} ms plain")
+    if not all(v <= 2e-2 for v in errs.values()):
+        raise AssertionError(f"transparent step kernel vs plain: {errs}")
+
+
+def _transparent_eval(model, batch, refine, want, reps=5):
+    """Phase 15(d): the eval step on `batch`, kernel path against plain
+    path, its launches and frames/s."""
+    import torch
+    from pose_estimation_tpu_torch.train.transparent_trainer import (
+        build_transparent_eval_step)
+    ev = build_transparent_eval_step(model, refine_icp=refine,
+                                     icp_iters=ICP_ITERS,
+                                     icp_points=ICP_POINTS)
+    ev(batch)                                            # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    out = ev(batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    with plain_kernels():
+        ref = ev(batch)
+    bs = batch["img"].shape[0]
+    ms = _median([_sync_ms(lambda: ev(batch))[1] for _ in range(reps)])
+    keys = ("add_dis", "add_dis_icp") if refine else ("add_dis",)
+    errs = {k: ((out[k] - ref[k]).abs() / ref[k].abs().clamp(min=1.0))
+            .max().item() for k in keys}
+    flags = (torch.equal(out["icp_accepted"], ref["icp_accepted"])
+             if refine else True)
+    log(f"  eval step, bs {bs}, ICP {'on' if refine else 'off'}: launches "
+        f"{counts}; add_dis mean {out['add_dis'].mean().item():.4f} m"
+        + (f", add_dis_icp mean {out['add_dis_icp'].mean().item():.4f} m, "
+           f"accepted {out['icp_accepted'].sum().item():.0f} of {bs}"
+           if refine else "")
+        + f"; kernel vs plain max rel |err| {errs}, accept flags equal "
+        f"{flags}; {ms:.2f} ms = {bs / ms * 1e3:.1f} frames/s")
+    finite = all(torch.isfinite(v.float()).all() for v in out.values())
+    if not (finite and counts == want and flags
+            and all(e <= 1e-5 for e in errs.values())):
+        raise AssertionError(f"transparent eval (ICP {refine}): finite "
+                             f"{finite}, launches {counts}, {errs}, {flags}")
+    return counts, bs / ms * 1e3
+
+
+def write_cleargrasp_tree(root: Path, copies: int = 4) -> Path:
+    """tests/golden/cleargrasp's two frames, each `copies` times under new
+    frame ids, as a train and a val split of cup-with-waves, with its
+    mesh: 2 x copies instances a split."""
+    src = ROOT / "tests" / "golden" / "cleargrasp"
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(src / "models", root / "models")
+    obj = "cup-with-waves"
+    for split in ("train", "val"):
+        for sub in (src / f"{obj}-train").iterdir():
+            out = root / f"{obj}-{split}" / sub.name
+            out.mkdir(parents=True)
+            for f in sorted(sub.iterdir()):
+                stem, rest = f.name.split("-", 1)
+                for c in range(copies):
+                    shutil.copy(f, out / f"{int(stem) + 2 * c:06d}-{rest}")
+    return root
+
+
+def run_transparent_cli(want_step, want_eval):
+    """Phase 15(e): the training CLI on the ClearGrasp fixture at the
+    shipped config (one debug epoch: 1 step of 8, one eval batch), then
+    tools/eval_transparent.py --ckpt from its checkpoint on the val
+    split; their launch counts."""
+    import torch
+    from pose_estimation_tpu_torch import cli
+    from pose_estimation_tpu_torch.tools import eval_transparent
+    out = ROOT / "build" / "smoke" / "transparent"
+    tree = write_cleargrasp_tree(out / "cleargrasp")
+    run_dir = out / "cli_run"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["--config", "transparent_cleargrasp", "--dataset_root",
+              str(tree), "--debug", "--epochs", "1", "--log_dir",
+              str(run_dir)])
+    torch.cuda.synchronize()
+    wall, counts = time.perf_counter() - t0, read_counts()
+    train, evals = _lines(run_dir / "train.jsonl"), _lines(
+        run_dir / "eval.jsonl")
+    log(f"  cli.py --dataset cleargrasp (8 instances, bs 8): {len(train)} "
+        f"train record(s), first {train[0]}; eval {evals[-1]}; {wall:.1f} s")
+    _check_counts("the CLI run", counts, {"train steps": (1, want_step),
+                                          "eval batches": (1, want_eval)})
+    if not (math.isfinite(train[0]["all_loss"]) and evals
+            and evals[-1]["count"] == 8 and "add_dis" in evals[-1]):
+        raise AssertionError("transparent CLI: no train or eval records")
+    reset_counts()
+    summary = eval_transparent.main(
+        ["--config", "transparent_cleargrasp", "--ckpt",
+         str(run_dir / "ckpt"), "--dataset_root", str(tree), "--log_dir",
+         str(out / "eval_tool")])
+    torch.cuda.synchronize()
+    tool_counts = read_counts()
+    log(f"  tools/eval_transparent.py --ckpt on the val split: "
+        f"{summary['overall']}")
+    _check_counts("the eval tool", tool_counts,
+                  {"eval batches": (1, want_eval)})
+    if summary["overall"]["count"] != 8:
+        raise AssertionError(f"eval tool: {summary['overall']}")
+    return counts, tool_counts
+
+
+def _transparent_trainer_run(cfg, ds, log_dir, dev, steps):
+    """TransparentTrainer.train_epoch for `steps` steps: each step's
+    metrics and launches."""
+    import torch
+    from pose_estimation_tpu_torch.train.transparent_trainer import (
+        TransparentTrainer)
+    shutil.rmtree(log_dir, ignore_errors=True)
+    tr = TransparentTrainer(cfg, ds, log_dir=str(log_dir), device=str(dev))
+    tr.init_state()
+    recorded, inner = [], tr.train_step
+
+    def step(state, batch):
+        reset_counts()
+        m = inner(state, batch)
+        torch.cuda.synchronize()
+        recorded.append(({k: v.item() for k, v in m.items()}, read_counts()))
+        return m
+
+    tr.train_step = step
+    tr.train_epoch(0, steps=steps)
+    if len(recorded) != steps:
+        raise AssertionError(f"the transparent trainer ran {len(recorded)} "
+                             "steps")
+    return recorded
+
+
+def transparent_group_of_one(cfg, ds, dev, steps=2):
+    """Phase 15(f): the transparent trainer in a 1-process NCCL group
+    against no group: the first step's loss terms bit for bit (the
+    gradient norm at phase 14's MGPU_FIRST_NORM_TOL: the card's backward
+    accumulates with atomics)."""
+    from pose_estimation_tpu_torch.parallel import dist
+    out_dir = ROOT / "build" / "smoke" / "transparent"
+    ref = _transparent_trainer_run(cfg, ds, out_dir / "nogroup", dev, steps)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if not dist.distributed_init(backend, f"tcp://localhost:{_free_port()}",
+                                 1, 0):
+        raise AssertionError(f"no {backend} group")
+    try:
+        got = _transparent_trainer_run(cfg, ds, out_dir / "group", dev, steps)
+    finally:
+        dist.destroy()
+    first = {k: v for k, v in got[0][0].items() if k != "grad_norm"}
+    want = {k: v for k, v in ref[0][0].items() if k != "grad_norm"}
+    d_norm = abs(got[0][0]["grad_norm"] - ref[0][0]["grad_norm"]) / max(
+        1.0, ref[0][0]["grad_norm"])
+    log(f"  transparent trainer, {backend} group of one against no group, "
+        f"{steps} steps at bs {cfg.train.batch_size}: first step's loss "
+        f"terms bit for bit {first == want}, gradient norm rel |delta| "
+        f"{d_norm:.3e}; losses {[m['all_loss'] for m, _ in got]} (no group "
+        f"{[m['all_loss'] for m, _ in ref]}); launches a step "
+        f"{got[0][1]}")
+    if not (first == want and d_norm <= MGPU_FIRST_NORM_TOL
+            and all(c == TRANSPARENT_TRAIN for _, c in ref + got)):
+        raise AssertionError("transparent trainer: group of one vs no group")
+    return got[0][1]
+
+
+def transparent_full_width(dev):
+    """Phase 15: schema.transparent_cleargrasp() on the card (bf16,
+    bs 8, seeded weights, synthetic frames at 256 px): (a) kernel 4 at the
+    loss's and ICP's shapes, (b) a step with the kernel against the plain
+    versions, its launches, (c) 30 steps on one batch, (d) the eval step
+    with and without ICP, (e) the CLI and the eval tool on the ClearGrasp
+    fixture, (f) the trainer in a 1-process NCCL group. Returns
+    (kernel 4's row at the loss's shape, launches by path)."""
+    import torch
+    from pose_estimation_tpu_torch.configs import schema
+    from pose_estimation_tpu_torch.train.transparent_trainer import (
+        draw_choose)
+    t_phase = time.perf_counter()
+    cfg = schema.transparent_cleargrasp()
+    bs, n_pts = cfg.train.batch_size, cfg.data.num_points
+    m = min(500, n_pts)
+    g = torch.Generator(device=dev).manual_seed(15)
+    log("  (a) kernel 4 at the loss's and ICP's shapes")
+    row = check_transparent_kernel(dev, g, bs, n_pts * m, m)
+
+    from pose_estimation_tpu_torch.data.transparent_batching import (
+        make_transparent_batch)
+    batch = {k: v.to(dev) for k, v in make_transparent_batch(
+        _transparent_dataset(cfg), list(range(bs)), seed=0,
+        img_size=cfg.data.input_size, num_model=m).items()}
+    state, step = _transparent_setup(cfg, dev)
+    prec = "bf16" if cfg.train.amp else "fp32"
+    log(f"  (b) one step (bs {bs}, {prec}, {n_pts} points, {m} model "
+        f"points, {cfg.data.input_size} px) with the kernel against the "
+        "plain versions")
+    _transparent_step_vs_plain(state, step, batch)
+    reset_counts()
+    step(state, batch)
+    torch.cuda.synchronize()
+    paths = {"transparent_train": read_counts()}
+    log(f"  launches in one train step: {paths['transparent_train']}")
+    if paths["transparent_train"] != TRANSPARENT_TRAIN:
+        raise AssertionError(f"transparent step launches "
+                             f"{paths['transparent_train']}")
+
+    log(f"  (c) {TRANSPARENT_STEPS} steps on one batch at lr 3e-4")
+    torch.cuda.reset_peak_memory_stats()
+    losses, skipped, times, split = [], 0.0, [], []
+    for i in range(TRANSPARENT_STEPS):
+        if i < TRANSPARENT_STEPS - 5:
+            mt, t = _sync_ms(lambda: step(state, batch))
+        else:
+            choose = draw_choose(state.generator,
+                                 cfg.data.input_size ** 2, n_pts)
+            out, t1 = _sync_ms(lambda: step.losses(batch, choose))
+            grads, t2 = _sync_ms(lambda: step.gradients(out))
+            mt, t3 = _sync_ms(lambda: step.apply(state, out, grads))
+            t = t1 + t2 + t3
+            split.append((t1, t2, t3))
+        times.append(t)
+        losses.append(mt["all_loss"].item())
+        skipped += mt["skipped_nonfinite"].item()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first, last5 = losses[0], sum(losses[-5:]) / 5
+    log(f"  {TRANSPARENT_STEPS} steps: loss {first:.4f} -> mean of the last "
+        f"5 {last5:.4f}; skipped {skipped:.0f}; losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    if not (all(math.isfinite(x) for x in losses) and skipped == 0
+            and last5 < first):
+        raise AssertionError(f"transparent training did not run clean: "
+                             f"{losses}, skipped {skipped}")
+    med = _median(times[:-5])
+    fwd, bwd, opt = (_median([p[j] for p in split]) for j in range(3))
+    log(f"  transparent train step (bs={bs}, {prec}), median of "
+        f"{TRANSPARENT_STEPS - 5}: {med:.2f} ms = {bs / med * 1e3:.2f} "
+        f"samples/s; split (median of 5, synced between stages): forward + "
+        f"loss {fwd:.2f} ms, backward {bwd:.2f} ms, guard + optimizer "
+        f"{opt:.2f} ms; peak memory {peak:.2f} GiB")
+    profile_steps(lambda: step(state, batch), 3)
+
+    log("  (d) the eval step at bs 8, ICP off and on")
+    model = state.model
+    paths["transparent_eval"], fps = _transparent_eval(
+        model, batch, False, TRANSPARENT_EVAL)
+    paths["transparent_eval_icp"], fps_icp = _transparent_eval(
+        model, batch, True, TRANSPARENT_EVAL_ICP)
+    del state, step, model, batch
+    torch.cuda.empty_cache()
+
+    log("  (e) the training CLI and tools/eval_transparent.py on the "
+        "ClearGrasp fixture (the shipped config)")
+    paths["transparent_cli"], paths["transparent_eval_tool"] = \
+        run_transparent_cli(TRANSPARENT_TRAIN, TRANSPARENT_EVAL)
+
+    log("  (f) the transparent trainer in a 1-process NCCL group")
+    paths["transparent_nccl_group"] = transparent_group_of_one(
+        cfg, _transparent_dataset(cfg, frames_per_object=4), dev)
+    row.update(train_step_ms=med, samples_s=bs / med * 1e3,
+               eval_frames_s=fps, eval_icp_frames_s=fps_icp,
+               peak_gib=peak)
+    log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return row, paths
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -2197,6 +2651,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = gpu_line()
+    t_start = time.perf_counter()
 
     log(f"[1] device: {torch.cuda.get_device_name(0)} | {card} | torch "
         f"{torch.__version__} cuda {torch.version.cuda}")
@@ -2290,6 +2745,14 @@ def main(argv=None) -> int:
         "ops")
     paths.update(multi_gpu_one_card(cfg, dev))
 
+    log("[15] the transparent pipeline (schema.transparent_cleargrasp(), "
+        "bf16, bs=8): kernel 4 at 500,000 x 500, the train step, 30 steps, "
+        "the eval with ICP, the CLI and eval tool on the ClearGrasp fixture,"
+        " a 1-process NCCL group")
+    transparent_row, transparent_paths = transparent_full_width(dev)
+    paths.update(transparent_paths)
+    results["min_dists"]["transparent_loss"] = transparent_row
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax",
                                            "pose_estimation_tpu"))
@@ -2309,7 +2772,9 @@ def main(argv=None) -> int:
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"],
                         **{k: r[k] for k in ("device_ms", "profiler_shape",
-                                             "serving_maps") if k in r}})
+                                             "serving_maps",
+                                             "transparent_loss") if k in r}})
+    log(f"chip_smoke: all 15 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

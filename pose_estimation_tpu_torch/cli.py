@@ -1,17 +1,22 @@
-"""Training command line (counterpart of the KRRN half of cli.py).
+"""Training command line (counterpart of cli.py).
 
   python -m pose_estimation_tpu_torch.cli --config cfg.py --dataset linemod \
       --cls_type all --dataset_root data/linemod --debug --epochs 1 \
       --log_dir runs/smoke [--device cpu]
+  python -m pose_estimation_tpu_torch.cli --config transparent_cleargrasp \
+      --dataset_root data/cleargrasp --log_dir runs/transparent
 
 `--config` is a preset of configs/schema.py or a .py file whose
 `get_config()` returns a Config; `--dataset` and `--cls_type` override its
-fields. The datasets are the synthetic fixture (`--synthetic`), LineMOD in
-the BOP or the classic layout and YCB-V (BOP layout) under
-`--dataset_root`; the transparent pipeline and ClearGrasp are not ported.
-The run writes log_dir/train.jsonl, log_dir/eval.jsonl and checkpoints
-under log_dir/ckpt; each eval summary is echoed to stdout as a JSON line.
-`--eval_mode` evaluates the test split once instead of training.
+fields. A config with pipeline="transparent" trains TRPESNet
+(train/transparent_trainer.py), any other KRRN. The datasets are the
+synthetic fixture (`--synthetic`: the transparent one under the
+transparent pipeline), LineMOD in the BOP or the classic layout, YCB-V
+(BOP layout) and ClearGrasp under `--dataset_root`. The run writes
+log_dir/train.jsonl, log_dir/eval.jsonl and checkpoints under
+log_dir/ckpt; each eval summary is echoed to stdout as a JSON line.
+`--eval_mode` evaluates the test split (ClearGrasp's val split) once
+instead of training.
 
 On N cards of a node, under torchrun (one process a card, NCCL):
 
@@ -32,10 +37,6 @@ import sys
 from pose_estimation_tpu_torch.configs import schema
 from pose_estimation_tpu_torch.parallel import dist
 
-NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 4, the transparent "
-              "pipeline)")
-
-
 def load_config(spec: str) -> schema.Config:
     if spec.endswith(".py"):
         mod_spec = importlib.util.spec_from_file_location("user_config", spec)
@@ -52,14 +53,14 @@ def build_dataset(cfg: schema.Config, args, mode: str = "train"):
     """The dataset `cfg` names, for `mode` ("train", "test" or "eval"):
     `args` carries synthetic, frames_per_object, dataset_root and
     background_dir."""
-    if cfg.pipeline != "krrn":
-        raise SystemExit(f"pipeline {cfg.pipeline!r} {NOT_PORTED}")
     if cfg.dataset == "synthetic" or getattr(args, "synthetic", False):
         from pose_estimation_tpu_torch.data.synthetic import (
-            SyntheticPoseDataset)
-        return SyntheticPoseDataset(num_objects=cfg.module.num_cls,
-                                    frames_per_object=args.frames_per_object,
-                                    num_regions=cfg.data.num_regions)
+            SyntheticPoseDataset, SyntheticTransparentDataset)
+        ds_cls = (SyntheticTransparentDataset
+                  if cfg.pipeline == "transparent" else SyntheticPoseDataset)
+        return ds_cls(num_objects=cfg.module.num_cls,
+                      frames_per_object=args.frames_per_object,
+                      num_regions=cfg.data.num_regions)
     if cfg.dataset == "linemod":
         from pose_estimation_tpu_torch.data.linemod import LinemodDataset
         return LinemodDataset(args.dataset_root, mode=mode,
@@ -75,7 +76,10 @@ def build_dataset(cfg: schema.Config, args, mode: str = "train"):
                                background_dir=getattr(
                                    args, "background_dir", None))
     if cfg.dataset == "cleargrasp":
-        raise SystemExit(f"dataset 'cleargrasp' {NOT_PORTED}")
+        from pose_estimation_tpu_torch.data.cleargrasp import (
+            ClearGraspDataset)
+        return ClearGraspDataset(
+            args.dataset_root, split="train" if mode == "train" else "val")
     raise SystemExit(f"unknown dataset: {cfg.dataset}")
 
 
@@ -84,7 +88,8 @@ def main(argv=None):
     p.add_argument("--config", "--config_file", default="lm_v3_1",
                    help="preset name in configs.schema or a .py file")
     p.add_argument("--dataset", default=None,
-                   help="synthetic, linemod or ycb (overrides the config)")
+                   help="synthetic, linemod, ycb or cleargrasp (overrides "
+                        "the config)")
     p.add_argument("--cls_type", default=None,
                    help="one object's name, or all (overrides the config)")
     p.add_argument("--dataset_root", default="data/linemod")
@@ -129,10 +134,21 @@ def _run(args) -> int:
 
     mode = "eval" if args.eval_mode else "train"
     dataset = build_dataset(cfg, args, mode=mode)
-    from pose_estimation_tpu_torch.train.trainer import Trainer
-    trainer = Trainer(cfg, dataset, log_dir=args.log_dir, resume=args.resume,
-                      resume_backbone_only=args.resume_backbone_only,
-                      device=args.device, enable_rot=args.enable_rot)
+    if cfg.pipeline == "transparent":
+        from pose_estimation_tpu_torch.train.transparent_trainer import (
+            TransparentTrainer)
+        try:
+            trainer = TransparentTrainer(cfg, dataset, log_dir=args.log_dir,
+                                         resume=args.resume,
+                                         device=args.device)
+        except NotImplementedError as e:        # an option not ported
+            raise SystemExit(str(e)) from e
+    else:
+        from pose_estimation_tpu_torch.train.trainer import Trainer
+        trainer = Trainer(cfg, dataset, log_dir=args.log_dir,
+                          resume=args.resume,
+                          resume_backbone_only=args.resume_backbone_only,
+                          device=args.device, enable_rot=args.enable_rot)
     trainer.init_state()
     if args.eval_mode:
         summary = trainer.test_epoch(0)

@@ -1,7 +1,7 @@
 """Rotation conversions (counterpart of core/geometry/rotations.py).
 
-Only what the serving path needs: Rodrigues both ways, rigid transform of
-points, geodesic angle. Conventions as in the JAX package: matrices act on
+What the serving and transparent paths need: Rodrigues both ways,
+quaternion to matrix, rigid transform of points, geodesic angle. Conventions as in the JAX package: matrices act on
 column vectors, axis-angle is (..., 3) with angle = |v|, quaternions are
 (w, x, y, z). Every branch is a `torch.where` over both values, so the
 functions run under torch.func.vmap/jacfwd (the LM Jacobian).
@@ -30,6 +30,21 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     sq = torch.sum(q * q, dim=-1, keepdim=True)
     q = q / torch.sqrt(torch.clamp(sq, min=_EPS * _EPS))
     return torch.where(q[..., :1] < 0, -q, q)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """(w, x, y, z) quaternion, normalised first -> (..., 3, 3) matrix."""
+    q = quat_normalize(q)
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))
 
 
 def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Synthetic RGB-D pose fixture: procedural objects + point-splat renderer.
 
-The JAX package's data/synthetic.py (KRRN part) carried over unchanged so
-the port stands without it; tests/test_torch_slice.py pins that both
-render the same frames.
+The JAX package's data/synthetic.py carried over unchanged so the port
+stands without it; tests/test_torch_slice.py pins that both render the
+same frames, tests/test_torch_transparent_data.py the transparent
+fixture's.
 
 Two roles (SURVEY.md sections 4, 7.3):
 1. the end-to-end test fixture replacing the unavailable LineMOD download —
@@ -233,3 +234,31 @@ class SyntheticPoseDataset:
         if self._frame_cache is not None:
             self._frame_cache[i] = frame
         return frame
+
+
+# Synthetic symmetry axes for the transparent fixture: alternate Z-axis
+# and XZ symmetric objects (cleargrasp dataconfig/config.yaml:18-23 shape).
+_SYN_AXES = [np.array([0.0, 0.0, 1.0], np.float32),
+             np.array([1.0, 0.0, 1.0], np.float32)]
+
+
+class SyntheticTransparentDataset(SyntheticPoseDataset):
+    """Transparent-pipeline fixture: same splat renders, but frames in the
+    BathPoseDataset schema (rgb/depth/normal/mask/r/t/k/cls_id/axis) with a
+    `model_points(cls_id)` accessor — the geometric-consistency stand-in
+    for ClearGraspDataset in tests (transparent analog of the KRRN e2e
+    fixture)."""
+
+    def __getitem__(self, i):
+        frame = super().__getitem__(i)
+        frame["axis"] = _SYN_AXES[frame["cls_id"] % len(_SYN_AXES)]
+        # propagate the object's sym flag (eggbox/glue semantics) so the
+        # transparent loss's symmetric-chamfer branch and eval ADD-S are
+        # exercised on the fixture — same bug class as the KRRN fixture's
+        # dropped sym flag (fixed r3): a hardcoded 0.0 here made
+        # `sym_objects` silently inert for the transparent pipeline.
+        frame["sym"] = float(self.objects[frame["cls_id"]].sym)
+        return frame
+
+    def model_points(self, obj_id: int, num_points: int = 500):
+        return self.objects[obj_id].model_points[:num_points]

@@ -1,1 +1,2 @@
-"""Losses: masked map losses and ADD(-S) pose losses (KRRN)."""
+"""Losses: masked map losses, ADD(-S) pose losses (KRRN) and the
+transparent pipeline's confidence ADD(-S) and completion losses."""

@@ -112,13 +112,26 @@ def _check_clouds(name, target, sources):
             raise ValueError(f"{name}: batch sizes differ")
 
 
+# targets per block of nearest_plain: its [B, chunk, m] distances and their
+# temporaries stay bounded (the transparent loss has n = 500,000)
+NEAREST_PLAIN_CHUNK = 1 << 16
+
+
 def nearest_plain(target: torch.Tensor, source: torch.Tensor,
-                  eps: float = 1e-8):
+                  eps: float = 1e-8, chunk: int = NEAREST_PLAIN_CHUNK):
     """[B, n, 3], [B, m, 3] -> (sqrt(max(min_j d, eps^2)) [B, n] fp32,
     argmin_j d [B, n] int32), d the expanded-form squared distance of
-    `sqdist`; ties go to the lower index (torch.min, like jnp.argmin)."""
-    best, idx = torch.min(sqdist(target, source), dim=-1)
-    return torch.sqrt(torch.clamp(best, min=eps * eps)), idx.to(torch.int32)
+    `sqdist`; ties go to the lower index (torch.min, like jnp.argmin).
+    The targets go in blocks of `chunk`: each row's minimum stands alone,
+    so the result is the same bits for any chunk."""
+    dists, idxs = [], []
+    for t in target.split(chunk, dim=1):
+        best, idx = torch.min(sqdist(t, source), dim=-1)
+        dists.append(torch.sqrt(torch.clamp(best, min=eps * eps)))
+        idxs.append(idx.to(torch.int32))
+    if len(dists) == 1:
+        return dists[0], idxs[0]
+    return torch.cat(dists, 1), torch.cat(idxs, 1)
 
 
 def nearest_multi_plain(target: torch.Tensor, sources, eps: float = 1e-8):

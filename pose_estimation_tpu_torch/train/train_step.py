@@ -102,7 +102,10 @@ class TrainStep:
     0-d device tensors (the loss terms, skipped_nonfinite and grad_norm,
     the global norm before clipping). `train=False` runs the
     deterministic eval forward (strided pools, no dropout). The three
-    stages are methods of their own: `losses`, `gradients`, `apply`."""
+    stages are methods of their own: `losses`, `gradients`, `apply`;
+    `gradients` and `apply` read the total under the key `total`."""
+
+    total = "loss"
 
     def __init__(self, model, tx, cfg: Config):
         self.model, self.tx, self.cfg = model, tx, cfg
@@ -134,7 +137,7 @@ class TrainStep:
         as jax.grad gives. Under a group, averaged over it (views of one
         flat buffer)."""
         names, params = zip(*self.model.named_parameters())
-        grads = torch.autograd.grad(losses["loss"], params,
+        grads = torch.autograd.grad(losses[self.total], params,
                                     allow_unused=True,
                                     materialize_grads=True)
         return dict(zip(names, dist.all_reduce_mean(grads)))
@@ -147,7 +150,8 @@ class TrainStep:
         with torch.no_grad():
             gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                    for g in grads.values()))
-            finite = torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm)
+            finite = (torch.isfinite(metrics[self.total])
+                      & torch.isfinite(gnorm))
             grads = {k: torch.where(finite, g, torch.zeros_like(g))
                      for k, g in grads.items()}
         state.apply_gradients(self.tx, grads)

@@ -89,18 +89,14 @@ class Trainer:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.manual_seed(cfg.seed)
-        dtype = torch.bfloat16 if cfg.train.amp else torch.float32
-        self.model = (model or KRRN(cfg, dtype=dtype, enable_rot=enable_rot)
+        self.model = (model or self.default_model(enable_rot)
                       ).to(self.device)
         # the LR horizon: the steps this rank runs over its shards
         steps_per_epoch = max(1, len(dataset) // (cfg.train.batch_size
                                                   * self.shard_count))
         self.tx = make_optimizer(
             cfg, total_steps=steps_per_epoch * cfg.train.num_epoch)
-        self.train_step = build_train_step(self.model, self.tx, cfg)
-        # on a card this checks cfg against the kernels' limits
-        # (ops.check_config) before anything launches
-        self.eval_step = build_eval_step(self.model, cfg)
+        self.train_step, self.eval_step = self.build_steps()
         self.log = MetricsLogger(log_dir, "train", enabled=self.primary)
         self.eval_log = MetricsLogger(log_dir, "eval", enabled=self.primary)
         self.ckpt = CheckpointManager(os.path.join(log_dir, "ckpt"))
@@ -108,6 +104,18 @@ class Trainer:
         self.resume_backbone_only = resume_backbone_only
         self.guard = TrainGuard(ckpt_manager=self.ckpt)
         self.state = None
+
+    def default_model(self, enable_rot: bool = False):
+        """The config's KRRN (bf16 activations with train.amp)."""
+        dtype = torch.bfloat16 if self.cfg.train.amp else torch.float32
+        return KRRN(self.cfg, dtype=dtype, enable_rot=enable_rot)
+
+    def build_steps(self):
+        """(train step, eval step) of self.model; on a card the eval step
+        checks cfg against the kernels' limits (ops.check_config) before
+        anything launches."""
+        return (build_train_step(self.model, self.tx, self.cfg),
+                build_eval_step(self.model, self.cfg))
 
     def init_state(self) -> TrainState:
         """A fresh state (the model's seeded random weights), then the

@@ -929,3 +929,99 @@ def test_ring_ops_on_one_rank_equal_the_kernels(dev, tmp_path):
     assert torch.equal(ki, pointops.knn(pts[None], pts[None], 10, True)[0])
     direct = ((pts[ki.long()] - pts[:, None]) ** 2).sum(-1).sqrt()
     torch.testing.assert_close(kd, direct, rtol=0, atol=1e-5)
+
+
+# --- the transparent pipeline (kernel 4 at its shapes) ----------------------
+
+def _transparent_batch(dev, b=4, h=32, m=16, seed=0):
+    rng = np.random.RandomState(seed)
+    mp = (rng.randn(b, m, 3) * 0.05).astype(np.float32)
+    normal = rng.randn(b, h, h, 3).astype(np.float32)
+    normal[:, :5] = 0.0
+    batch = {
+        "img": rng.rand(b, h, h, 3), "intrinsic": np.tile(
+            [[300.0, 300.0, h / 2, h / 2]], (b, 1)),
+        "xmap": np.tile(np.arange(h)[None, None, :], (b, h, 1)),
+        "ymap": np.tile(np.arange(h)[None, :, None], (b, 1, h)),
+        "d_scale": np.ones(b), "obj": np.arange(b) % 3,
+        "target": mp + [0.0, 0.0, 0.8], "model_points": mp,
+        "sym_mask": np.arange(b) % 2 == 0,
+        "axis": np.tile([[0.0, 0.0, 1.0]], (b, 1)),
+        "r": np.broadcast_to(np.eye(3), (b, 3, 3)),
+        "t": np.tile([0.0, 0.0, 0.8], (b, 1)), "normal": normal,
+        "depth": rng.rand(b, h, h, 1), "mask": rng.rand(b, h, h, 1)}
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.array(v))
+        out[k] = (t.int() if k == "obj" else t.float()).to(dev)
+    return out
+
+
+def test_transparent_step_and_eval_launches_and_cpu_parity(dev):
+    """The tiny TRPESNet (fp32) on the card: one kernel 4 launch a train
+    step, one an eval batch, 1 + iters + 1 + 1 with ICP; the step's loss
+    terms against the same step on the CPU (the plain version) at 1e-4
+    relative, the eval's add_dis and ICP flags against the CPU's."""
+    from pose_estimation_tpu_torch.models.transparent import TRPESNet
+    from pose_estimation_tpu_torch.train.transparent_trainer import (
+        TransparentTrainStep, build_transparent_eval_step)
+    torch.manual_seed(0)
+    model = TRPESNet(32, 3)
+    batch = _transparent_batch(dev)
+    choose = torch.randperm(32 * 32, generator=torch.Generator()
+                            .manual_seed(1))[:32]
+    terms = {}
+    for where in ("cuda", "cpu"):
+        model.to(where)
+        tb = {k: v.to(where) for k, v in batch.items()}
+        step = TransparentTrainStep(model, None, dict.fromkeys(
+            ("distance", "rotation", "normal", "depth", "mask"), 1.0))
+        pointops.nearest_multi.launches = 0
+        losses = step.losses(tb, choose.to(where))
+        step.gradients(losses)
+        terms[where] = {k: v.item() for k, v in losses.items()}
+        if where == "cuda":
+            assert pointops.nearest_multi.launches == 1
+            for icp_on, want in ((False, 1), (True, 1 + 4 + 1 + 1)):
+                ev = build_transparent_eval_step(model, icp_on, icp_iters=4,
+                                                 icp_points=64)
+                pointops.nearest_multi.launches = 0
+                out = ev(tb)
+                assert pointops.nearest_multi.launches == want
+            cuda_out = {k: v.cpu() for k, v in out.items()}
+        else:
+            cpu_out = ev(tb)
+    for k, v in terms["cpu"].items():
+        assert abs(terms["cuda"][k] - v) <= 1e-4 * max(1.0, abs(v)), k
+    torch.testing.assert_close(cuda_out["add_dis"], cpu_out["add_dis"],
+                               rtol=1e-4, atol=1e-6)
+    assert torch.equal(cuda_out["icp_accepted"], cpu_out["icp_accepted"])
+
+
+def test_nearest_at_eps_zero_and_icp_on_the_card(dev):
+    """Kernel 4 with eps = 0 (ICP's trimmed residual) equals the plain
+    version bit for bit, a coincident pair at distance 0; gated ICP on
+    the card against the CPU: the same accept flags, rotations and
+    translations within 1e-4."""
+    from pose_estimation_tpu_torch.core.solvers.icp import gated_icp_refine
+    g = torch.Generator(device=dev).manual_seed(4)
+    t = torch.randn(3, 256, 3, generator=g, device=dev) * 0.05
+    s = torch.randn(3, 500, 3, generator=g, device=dev) * 0.05
+    t[1, 7] = s[1, 11]
+    got = pointops.nearest_multi(t, [s, s[:, :300].contiguous()], eps=0.0)
+    ref = pointops.nearest_multi_plain(t, [s, s[:, :300].contiguous()],
+                                       eps=0.0)
+    for (d, i), (dp, ip) in zip(got, ref):
+        assert torch.equal(d, dp) and torch.equal(i, ip)
+    assert got[0][0][1, 7].item() == 0.0
+    src = s[:, :200].contiguous()
+    dst = (src[:, :64] + torch.tensor([0.004, -0.002, 0.003],
+                                      device=dev)).contiguous()
+    eye = torch.eye(3, device=dev).expand(3, 3, 3).contiguous()
+    zero = torch.zeros(3, 3, device=dev)
+    out = gated_icp_refine(src, dst, eye, zero, trim_fraction=0.3)
+    cpu = gated_icp_refine(src.cpu(), dst.cpu(), eye.cpu(), zero.cpu(),
+                           trim_fraction=0.3)
+    assert torch.equal(out[2].cpu(), cpu[2])
+    for a, b in zip(out[:2], cpu[:2]):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)

@@ -13,7 +13,11 @@ CPU:
       bit for bit (rounding to nearest is monotone; bf16(x) <= 0 for
       x <= 0), checked here on fp32 values with negatives, +-0, NaN and
       values on bf16 rounding midpoints; and the kernel's whole order,
-      written out in PyTorch, equals surface_multi_plain bit for bit.
+      written out in PyTorch, equals surface_multi_plain bit for bit;
+  nearest_plain in blocks of targets (its memory bound at the transparent
+      loss's 500,000 targets) equals the unblocked search bit for bit,
+      blocks ending inside the clouds and at their last target, eps > 0
+      and eps = 0 (ICP's trimmed residual).
 Inputs are made with numpy from a seed.
 """
 
@@ -156,3 +160,19 @@ def test_surface_kernel_order_matches_plain(s, o, k):
     for got, ref in zip(_surface_kernel_order(nds, dirs, s),
                         gcn.surface_multi_plain(nds, dirs, s), strict=True):
         assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64, 100, 101, 4096])
+@pytest.mark.parametrize("eps", [1e-8, 0.0])
+def test_nearest_plain_in_blocks_equals_unblocked(chunk, eps):
+    rng = np.random.RandomState(3)
+    t = torch.from_numpy((rng.randn(2, 101, 3) * 0.05).astype(np.float32))
+    s = torch.from_numpy((rng.randn(2, 37, 3) * 0.05).astype(np.float32))
+    t[0, 64] = s[0, 5]                 # a zero distance on a block's edge
+    t[1, 100] = s[1, 36]
+    d2 = pointops.sqdist(t, s)
+    best, idx = torch.min(d2, dim=-1)
+    want_d = torch.sqrt(torch.clamp(best, min=eps * eps))
+    got_d, got_i = pointops.nearest_plain(t, s, eps, chunk=chunk)
+    assert torch.equal(got_d, want_d) and torch.equal(got_i, idx.int())
+    assert got_d[0, 64] == (eps if eps else 0.0)
