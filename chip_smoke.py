@@ -134,6 +134,26 @@ Phases (each raises on failure, the script then exits non-zero):
      split, launches held; (f) the transparent trainer in a 1-process
      NCCL group against no group, 2 steps: the first step's loss terms
      bit for bit;
+ 16. the PSPNet generation, schema.transparent_cleargrasp() with
+     module.transparent_model="posenet" (TransparentPoseNet: the dilated
+     ResNet18, the PSP pyramid, the three-branch decoder, the mask and
+     boundary head, 256-px crops, 1000 points, 500 model points, 5
+     objects, bf16, bs=8, seeded weights, synthetic frames): (a) one
+     step's loss terms (loss_b among them, positive) and gradient norm
+     with the kernel against the plain versions from the same state,
+     batch, pixels and dropout masks (2e-2 x max(1, |ref|)), launches a
+     step exactly 0/0/0/1/0; (b) 30 steps on one batch at lr 3e-4
+     without warmup, held as 15(c), the step time, its split, samples/s,
+     the peak memory and the device's busy time over 3 profiled steps;
+     (c) the eval step at bs 8 with ICP off and on, held as 15(d),
+     launches 1 and 13, frames/s; (d) one step each of
+     TRPESNet(use_transformer=True), TRPESNet(use_equalized=True) and
+     TransparentPoseNet(use_transformer=True) at full width (attention
+     over 1000 points at 8, 4 and 2 heads), kernel against plain as (a),
+     launches 0/0/0/1/0, the step time; (e) the training CLI with a
+     --config setting transparent_model="posenet" on the ClearGrasp
+     fixture (one step, one eval batch) and tools/eval_transparent.py
+     --ckpt from its checkpoint, launches held;
 and checks that nothing of JAX or of the JAX package was imported.
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -2318,9 +2338,9 @@ def _transparent_dataset(cfg, frames_per_object=2):
         cache_frames=True)
 
 
-def _transparent_setup(cfg, dev):
-    """The config's TRPESNet (seeded weights) and its train step at lr
-    3e-4 without warmup: (state, step)."""
+def _transparent_setup(cfg, dev, make_model=None):
+    """The config's transparent model (or make_model()'s; seeded weights)
+    and its train step at lr 3e-4 without warmup: (state, step)."""
     import torch
     from pose_estimation_tpu_torch.configs import schema
     from pose_estimation_tpu_torch.train.optim import make_optimizer
@@ -2330,7 +2350,7 @@ def _transparent_setup(cfg, dev):
     cfg = schema.override(cfg, **{"train.lr.lr": 3e-4,
                                   "train.lr.warmup_iters": 0})
     torch.manual_seed(0)
-    model = build_model(cfg, dev)
+    model = (make_model() if make_model else build_model(cfg)).to(dev)
     tx = make_optimizer(cfg, total_steps=1000)
     state = TrainState.create(model, tx,
                               torch.Generator(device=dev).manual_seed(0))
@@ -2338,18 +2358,17 @@ def _transparent_setup(cfg, dev):
 
 
 def _transparent_step_vs_plain(state, step, batch):
-    """Phase 15(b): every loss term and the gradient norm of one step
-    with the kernel against the plain versions, from the same state,
-    batch and pixels: 2e-2 x max(1, |ref|)."""
+    """Phases 15(b), 16(a) and (d): every loss term and the gradient norm
+    of one step with the kernel against the plain versions, from the same
+    state, batch and draws (the model family's: the pixels, and
+    TransparentPoseNet's dropout masks): 2e-2 x max(1, |ref|). Returns
+    the kernel path's terms and its forward + backward ms."""
     import torch
-    from pose_estimation_tpu_torch.train.transparent_trainer import (
-        draw_choose)
-    _, h, w, _ = batch["img"].shape
-    choose = draw_choose(torch.Generator(device=batch["img"].device)
-                         .manual_seed(1), h * w, step.model.num_points)
+    draws = step.draws(torch.Generator(device=batch["img"].device)
+                       .manual_seed(1), batch)
 
     def terms():
-        losses = step.losses(batch, choose)
+        losses = step.losses(batch, *draws)
         grads = step.gradients(losses)
         out = {k: v.item() for k, v in losses.items()}
         out["grad_norm"] = torch.sqrt(sum(torch.sum(g.float() ** 2)
@@ -2368,6 +2387,56 @@ def _transparent_step_vs_plain(state, step, batch):
         f" kernel, {ms_p:.1f} ms plain")
     if not all(v <= 2e-2 for v in errs.values()):
         raise AssertionError(f"transparent step kernel vs plain: {errs}")
+    return got, ms_k
+
+
+def _counted_transparent_step(state, step, batch, want):
+    """The train step, once, between resetting and reading the counts."""
+    import torch
+    reset_counts()
+    step(state, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"  launches in one train step: {counts}")
+    if counts != want:
+        raise AssertionError(f"transparent step launches {counts}")
+    return counts
+
+
+def _transparent_train_run(state, step, batch, steps):
+    """Phases 15(c) and 16(b): `steps` steps on one batch; the last 5
+    split into forward + loss, backward and guard + optimizer, synced
+    between the stages. Holds finite losses, no skipped step and the mean
+    of the last 5 losses below the first; returns (median step ms of the
+    others, the split's medians, peak GiB, the losses)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    losses, skipped, times, split = [], 0.0, [], []
+    for i in range(steps):
+        if i < steps - 5:
+            mt, t = _sync_ms(lambda: step(state, batch))
+        else:
+            draws = step.draws(state.generator, batch)
+            out, t1 = _sync_ms(lambda: step.losses(batch, *draws))
+            grads, t2 = _sync_ms(lambda: step.gradients(out))
+            mt, t3 = _sync_ms(lambda: step.apply(state, out, grads))
+            t = t1 + t2 + t3
+            split.append((t1, t2, t3))
+        times.append(t)
+        losses.append(mt["all_loss"].item())
+        skipped += mt["skipped_nonfinite"].item()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    first, last5 = losses[0], sum(losses[-5:]) / 5
+    log(f"  {steps} steps: loss {first:.4f} -> mean of the last 5 "
+        f"{last5:.4f}; skipped {skipped:.0f}; losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    if not (all(math.isfinite(x) for x in losses) and skipped == 0
+            and last5 < first):
+        raise AssertionError(f"transparent training did not run clean: "
+                             f"{losses}, skipped {skipped}")
+    return (_median(times[:-5]),
+            tuple(_median([p[j] for p in split]) for j in range(3)), peak,
+            losses)
 
 
 def _transparent_eval(model, batch, refine, want, reps=5):
@@ -2428,23 +2497,24 @@ def write_cleargrasp_tree(root: Path, copies: int = 4) -> Path:
     return root
 
 
-def run_transparent_cli(want_step, want_eval):
-    """Phase 15(e): the training CLI on the ClearGrasp fixture at the
-    shipped config (one debug epoch: 1 step of 8, one eval batch), then
-    tools/eval_transparent.py --ckpt from its checkpoint on the val
-    split; their launch counts."""
+def run_transparent_cli(want_step, want_eval, config="transparent_cleargrasp",
+                        name="transparent"):
+    """Phases 15(e) and 16(e): the training CLI on the ClearGrasp fixture
+    at `config` (the shipped preset, or a file; one debug epoch: 1 step of
+    8, one eval batch), then tools/eval_transparent.py --ckpt from its
+    checkpoint on the val split; their launch counts. Outputs under
+    build/smoke/<name>."""
     import torch
     from pose_estimation_tpu_torch import cli
     from pose_estimation_tpu_torch.tools import eval_transparent
-    out = ROOT / "build" / "smoke" / "transparent"
+    out = ROOT / "build" / "smoke" / name
     tree = write_cleargrasp_tree(out / "cleargrasp")
     run_dir = out / "cli_run"
     shutil.rmtree(run_dir, ignore_errors=True)
     reset_counts()
     t0 = time.perf_counter()
-    cli.main(["--config", "transparent_cleargrasp", "--dataset_root",
-              str(tree), "--debug", "--epochs", "1", "--log_dir",
-              str(run_dir)])
+    cli.main(["--config", config, "--dataset_root", str(tree), "--debug",
+              "--epochs", "1", "--log_dir", str(run_dir)])
     torch.cuda.synchronize()
     wall, counts = time.perf_counter() - t0, read_counts()
     train, evals = _lines(run_dir / "train.jsonl"), _lines(
@@ -2458,7 +2528,7 @@ def run_transparent_cli(want_step, want_eval):
         raise AssertionError("transparent CLI: no train or eval records")
     reset_counts()
     summary = eval_transparent.main(
-        ["--config", "transparent_cleargrasp", "--ckpt",
+        ["--config", config, "--ckpt",
          str(run_dir / "ckpt"), "--dataset_root", str(tree), "--log_dir",
          str(out / "eval_tool")])
     torch.cuda.synchronize()
@@ -2540,8 +2610,6 @@ def transparent_full_width(dev):
     (kernel 4's row at the loss's shape, launches by path)."""
     import torch
     from pose_estimation_tpu_torch.configs import schema
-    from pose_estimation_tpu_torch.train.transparent_trainer import (
-        draw_choose)
     t_phase = time.perf_counter()
     cfg = schema.transparent_cleargrasp()
     bs, n_pts = cfg.train.batch_size, cfg.data.num_points
@@ -2561,43 +2629,12 @@ def transparent_full_width(dev):
         f"points, {cfg.data.input_size} px) with the kernel against the "
         "plain versions")
     _transparent_step_vs_plain(state, step, batch)
-    reset_counts()
-    step(state, batch)
-    torch.cuda.synchronize()
-    paths = {"transparent_train": read_counts()}
-    log(f"  launches in one train step: {paths['transparent_train']}")
-    if paths["transparent_train"] != TRANSPARENT_TRAIN:
-        raise AssertionError(f"transparent step launches "
-                             f"{paths['transparent_train']}")
+    paths = {"transparent_train": _counted_transparent_step(
+        state, step, batch, TRANSPARENT_TRAIN)}
 
     log(f"  (c) {TRANSPARENT_STEPS} steps on one batch at lr 3e-4")
-    torch.cuda.reset_peak_memory_stats()
-    losses, skipped, times, split = [], 0.0, [], []
-    for i in range(TRANSPARENT_STEPS):
-        if i < TRANSPARENT_STEPS - 5:
-            mt, t = _sync_ms(lambda: step(state, batch))
-        else:
-            choose = draw_choose(state.generator,
-                                 cfg.data.input_size ** 2, n_pts)
-            out, t1 = _sync_ms(lambda: step.losses(batch, choose))
-            grads, t2 = _sync_ms(lambda: step.gradients(out))
-            mt, t3 = _sync_ms(lambda: step.apply(state, out, grads))
-            t = t1 + t2 + t3
-            split.append((t1, t2, t3))
-        times.append(t)
-        losses.append(mt["all_loss"].item())
-        skipped += mt["skipped_nonfinite"].item()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    first, last5 = losses[0], sum(losses[-5:]) / 5
-    log(f"  {TRANSPARENT_STEPS} steps: loss {first:.4f} -> mean of the last "
-        f"5 {last5:.4f}; skipped {skipped:.0f}; losses "
-        + " ".join(f"{x:.4f}" for x in losses))
-    if not (all(math.isfinite(x) for x in losses) and skipped == 0
-            and last5 < first):
-        raise AssertionError(f"transparent training did not run clean: "
-                             f"{losses}, skipped {skipped}")
-    med = _median(times[:-5])
-    fwd, bwd, opt = (_median([p[j] for p in split]) for j in range(3))
+    med, (fwd, bwd, opt), peak, _ = _transparent_train_run(
+        state, step, batch, TRANSPARENT_STEPS)
     log(f"  transparent train step (bs={bs}, {prec}), median of "
         f"{TRANSPARENT_STEPS - 5}: {med:.2f} ms = {bs / med * 1e3:.2f} "
         f"samples/s; split (median of 5, synced between stages): forward + "
@@ -2627,6 +2664,105 @@ def transparent_full_width(dev):
                peak_gib=peak)
     log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s")
     return row, paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the PSPNet generation (transparent_model="posenet")
+# ---------------------------------------------------------------------------
+
+POSENET_CONFIG = ("schema.override(schema.transparent_cleargrasp(),\n"
+                  "                           **{'module.transparent_model':"
+                  " 'posenet'})")
+POSENET_STEPS = 30
+# (d): the options the shipped config leaves off, (family, keywords)
+POSENET_OPTIONS = (("trpes", {"use_transformer": True}),
+                   ("trpes", {"use_equalized": True}),
+                   ("posenet", {"use_transformer": True}))
+
+
+def posenet_full_width(dev):
+    """Phase 16: the PSPNet generation at schema.transparent_cleargrasp()
+    with transparent_model="posenet" on the card (bf16, bs 8, seeded
+    weights, synthetic frames at 256 px): (a) a step with the kernel
+    against the plain versions and its launches, (b) 30 steps on one
+    batch, (c) the eval step with and without ICP, (d) one step of each
+    model option, (e) the CLI and the eval tool on the ClearGrasp fixture
+    with a posenet config. Returns (the phase's numbers, launches by
+    path)."""
+    import torch
+    from pose_estimation_tpu_torch.configs import schema
+    from pose_estimation_tpu_torch.data.transparent_batching import (
+        make_transparent_batch)
+    from pose_estimation_tpu_torch.train.transparent_trainer import FAMILIES
+    t_phase = time.perf_counter()
+    cfg = schema.override(schema.transparent_cleargrasp(),
+                          **{"module.transparent_model": "posenet"})
+    bs, n_pts = cfg.train.batch_size, cfg.data.num_points
+    m = min(500, n_pts)
+    prec = "bf16" if cfg.train.amp else "fp32"
+    dtype = torch.bfloat16 if cfg.train.amp else torch.float32
+    batch = {k: v.to(dev) for k, v in make_transparent_batch(
+        _transparent_dataset(cfg), list(range(bs)), seed=0,
+        img_size=cfg.data.input_size, num_model=m).items()}
+    state, step = _transparent_setup(cfg, dev)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log(f"  (a) one TransparentPoseNet step ({n_params / 1e6:.2f} M "
+        f"parameters; bs {bs}, {prec}, {n_pts} points, {m} model points, "
+        f"{cfg.data.input_size} px) with the kernel against the plain "
+        "versions, from the same pixels and dropout masks")
+    got, _ = _transparent_step_vs_plain(state, step, batch)
+    if not got["loss_b"] > 0:
+        raise AssertionError(f"the boundary term is {got['loss_b']}")
+    paths = {"posenet_train": _counted_transparent_step(
+        state, step, batch, TRANSPARENT_TRAIN)}
+
+    log(f"  (b) {POSENET_STEPS} steps on one batch at lr 3e-4 (dropout on)")
+    med, (fwd, bwd, opt), peak, losses = _transparent_train_run(
+        state, step, batch, POSENET_STEPS)
+    rises = sum(b > a for a, b in zip(losses, losses[1:]))
+    log(f"  PSPNet train step (bs={bs}, {prec}), median of "
+        f"{POSENET_STEPS - 5}: {med:.2f} ms = {bs / med * 1e3:.2f} "
+        f"samples/s; split (median of 5, synced between stages): forward + "
+        f"loss {fwd:.2f} ms, backward {bwd:.2f} ms, guard + optimizer "
+        f"{opt:.2f} ms; peak memory {peak:.2f} GiB; the loss rose on "
+        f"{rises} of {POSENET_STEPS - 1} steps")
+    profile_steps(lambda: step(state, batch), 3)
+
+    log("  (c) the eval step at bs 8, ICP off and on")
+    paths["posenet_eval"], fps = _transparent_eval(
+        state.model, batch, False, TRANSPARENT_EVAL)
+    paths["posenet_eval_icp"], fps_icp = _transparent_eval(
+        state.model, batch, True, TRANSPARENT_EVAL_ICP)
+    del state, step
+    torch.cuda.empty_cache()
+
+    log("  (d) one step of each option the shipped config leaves off")
+    options = {}
+    for family, kw in POSENET_OPTIONS:
+        label = (f"{FAMILIES[family].__name__}("
+                 f"{', '.join(f'{k}=True' for k in kw)})")
+        st, sp = _transparent_setup(cfg, dev, lambda: FAMILIES[family](
+            num_points=n_pts, num_obj=cfg.module.num_cls, dtype=dtype, **kw))
+        log(f"  {label}:")
+        _transparent_step_vs_plain(st, sp, batch)
+        paths[f"{family}_{'_'.join(kw)}"] = _counted_transparent_step(
+            st, sp, batch, TRANSPARENT_TRAIN)
+        options[label] = _median([_sync_ms(lambda: sp(st, batch))[1]
+                                  for _ in range(3)])
+        log(f"  {label}: train step {options[label]:.2f} ms (median of 3)")
+        del st, sp
+        torch.cuda.empty_cache()
+    del batch
+
+    log("  (e) the training CLI and tools/eval_transparent.py on the "
+        "ClearGrasp fixture with a posenet config")
+    paths["posenet_cli"], paths["posenet_eval_tool"] = run_transparent_cli(
+        TRANSPARENT_TRAIN, TRANSPARENT_EVAL,
+        str(write_config(POSENET_CONFIG, "posenet_config")), "posenet")
+    log(f"  phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return ({"train_step_ms": med, "samples_s": bs / med * 1e3,
+             "eval_frames_s": fps, "eval_icp_frames_s": fps_icp,
+             "peak_gib": peak, "option_step_ms": options}, paths)
 
 
 def main(argv=None) -> int:
@@ -2753,6 +2889,13 @@ def main(argv=None) -> int:
     paths.update(transparent_paths)
     results["min_dists"]["transparent_loss"] = transparent_row
 
+    log("[16] the PSPNet generation (transparent_model='posenet', bf16, "
+        "bs=8): the train step, 30 steps, the eval with ICP, the model "
+        "options, the CLI and eval tool on the ClearGrasp fixture")
+    posenet_row, posenet_paths = posenet_full_width(dev)
+    paths.update(posenet_paths)
+    results["min_dists"]["posenet"] = posenet_row
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax",
                                            "pose_estimation_tpu"))
@@ -2773,8 +2916,9 @@ def main(argv=None) -> int:
                         "library_ms": r["library_ms"],
                         **{k: r[k] for k in ("device_ms", "profiler_shape",
                                              "serving_maps",
-                                             "transparent_loss") if k in r}})
-    log(f"chip_smoke: all 15 phases in {time.perf_counter() - t_start:.1f} s")
+                                             "transparent_loss", "posenet")
+                           if k in r}})
+    log(f"chip_smoke: all 16 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@
 
 `--config` is a preset of configs/schema.py or a .py file whose
 `get_config()` returns a Config; `--dataset` and `--cls_type` override its
-fields. A config with pipeline="transparent" trains TRPESNet
+fields. A config with pipeline="transparent" trains the transparent
+model its module.transparent_model names, TRPESNet ("trpes") or the
+PSPNet generation's TransparentPoseNet ("posenet")
 (train/transparent_trainer.py), any other KRRN. The datasets are the
 synthetic fixture (`--synthetic`: the transparent one under the
 transparent pipeline), LineMOD in the BOP or the classic layout, YCB-V
@@ -141,7 +143,7 @@ def _run(args) -> int:
             trainer = TransparentTrainer(cfg, dataset, log_dir=args.log_dir,
                                          resume=args.resume,
                                          device=args.device)
-        except NotImplementedError as e:        # an option not ported
+        except ValueError as e:      # build_model refuses the config
             raise SystemExit(str(e)) from e
     else:
         from pose_estimation_tpu_torch.train.trainer import Trainer

@@ -10,8 +10,14 @@ joining with '.' and converting the leaf by the module it belongs to:
   ConvTranspose_*/kernel  [kh, kw, in, out] -> flipped in both spatial
                           axes, [in, out, kh, kw] (see layers.ConvTranspose)
   Dense_*/kernel          [in, out] -> [out, in]
-  GroupNorm_*/scale, BatchNorm_*/scale   -> weight
+  GroupNorm_*/scale, BatchNorm_*/scale, LayerNorm_*/scale -> weight
   bias, directions, weights (3D-GCN raw params)   unchanged
+  query|key|value|out/kernel (attention), EqualizedDense_*/kernel,
+  prelu_alpha             unchanged, in flax's shapes: the attention
+                          kernels [d, heads, head_dim] and [heads,
+                          head_dim, d], EqualizedDense's [in, out], the
+                          PReLU slope 0-d (an EqualizedConv's Conv_0 is a
+                          Conv)
   BatchNorm_*/mean, BatchNorm_*/var (batch_stats) -> running_mean,
                           running_var (buffers)
 
@@ -28,12 +34,17 @@ import numpy as np
 import torch
 
 
-NORMS = ("GroupNorm_", "BatchNorm_")
+NORMS = ("GroupNorm_", "BatchNorm_", "LayerNorm_")
+# leaves kept in flax's shape and name: the attention's DenseGeneral
+# kernels, EqualizedDense's kernel
+FLAX_SHAPED = ("query", "key", "value", "out", "EqualizedDense_")
 
 
 def _leaf(module: str, leaf: str, value: np.ndarray):
     v = np.array(value, dtype=np.float32)
     if leaf == "kernel":
+        if module.startswith(FLAX_SHAPED):
+            return leaf, v
         if module.startswith("ConvTranspose_"):
             return "weight", np.ascontiguousarray(
                 v[::-1, ::-1].transpose(2, 3, 0, 1))
@@ -45,7 +56,7 @@ def _leaf(module: str, leaf: str, value: np.ndarray):
         return "weight", v
     elif leaf in ("mean", "var") and module.startswith("BatchNorm_"):
         return f"running_{leaf}", v
-    elif leaf in ("bias", "directions", "weights"):
+    elif leaf in ("bias", "directions", "weights", "prelu_alpha"):
         return leaf, v
     raise KeyError(f"no conversion rule for leaf {leaf!r} of {module!r}")
 
@@ -64,7 +75,9 @@ def _leaf_back(module: str, name: str, value: np.ndarray):
     elif name in ("running_mean", "running_var") and module.startswith(
             "BatchNorm_"):
         return name[len("running_"):], value
-    elif name in ("bias", "directions", "weights"):
+    elif name == "kernel" and module.startswith(FLAX_SHAPED):
+        return name, value
+    elif name in ("bias", "directions", "weights", "prelu_alpha"):
         return name, value
     raise KeyError(f"no conversion rule for {name!r} of {module!r}")
 
@@ -142,7 +155,8 @@ def flax_axis0_dim(name: str) -> int:
     """The dim of the port's tensor `name` (a state_dict key) that holds
     flax's axis 0 of the same leaf: a conv kernel's row (HWIO -> OIHW, and
     the transposed conv's [in, out, kh, kw]) is dim 2, a Dense kernel's
-    input is dim 1, everything else keeps its layout."""
+    input is dim 1, everything else keeps its layout (the attention and
+    EqualizedDense kernels are stored in flax's shapes: dim 0)."""
     parts = name.split(".")
     module = parts[-2] if len(parts) > 1 else ""
     if parts[-1] == "weight" and module.startswith(("Conv_",

@@ -38,36 +38,53 @@ class Named(nn.Module):
         return module
 
 
-def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
-    """XLA 'SAME' padding (lo, hi): for an even input and stride 2 it is
-    (0, 1), not torch's symmetric (1, 1)."""
+def _same_pads(size: int, k: int, stride: int,
+               dilation: int = 1) -> tuple[int, int]:
+    """XLA 'SAME' padding (lo, hi) of a window of k taps `dilation`
+    apart, over its extent dilation * (k - 1) + 1: for an even input and
+    stride 2 it is (0, 1), not torch's symmetric (1, 1)."""
     out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
+    total = max((out - 1) * stride + dilation * (k - 1) + 1 - size, 0)
     return total // 2, total - total // 2
 
 
 class Conv(nn.Module):
-    """flax nn.Conv with padding 'SAME' (weight OIHW)."""
+    """flax nn.Conv with padding 'SAME' (weight OIHW), kernel_dilation
+    `dilation`."""
 
     def __init__(self, in_ch, out_ch, kernel, stride=1, bias=True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, dilation=1):
         super().__init__()
         self.stride, self.kernel, self.dtype = stride, kernel, dtype
+        self.dilation = dilation
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
 
     def forward(self, x):
         x = x.to(self.dtype)
-        ph = _same_pads(x.shape[2], self.kernel, self.stride)
-        pw = _same_pads(x.shape[3], self.kernel, self.stride)
+        ph = _same_pads(x.shape[2], self.kernel, self.stride, self.dilation)
+        pw = _same_pads(x.shape[3], self.kernel, self.stride, self.dilation)
         if ph[0] == ph[1] and pw[0] == pw[1]:
             pad = (ph[0], pw[0])
         else:
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
             pad = 0
         b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.conv2d(x, self.weight.to(self.dtype), b, self.stride, pad)
+        return F.conv2d(x, self.weight.to(self.dtype), b, self.stride, pad,
+                        self.dilation)
+
+
+def max_pool_same(x: torch.Tensor, k: int = 3, stride: int = 2
+                  ) -> torch.Tensor:
+    """NCHW nn.max_pool(x, (k, k), strides=(stride, stride),
+    padding="SAME"): XLA's (lo, hi) padding with -inf, which on an even
+    input is (0, 1), where max_pool2d(padding=1) would shift the windows
+    by a pixel."""
+    ph = _same_pads(x.shape[2], k, stride)
+    pw = _same_pads(x.shape[3], k, stride)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, k, stride)
 
 
 class ConvTranspose(nn.Module):
@@ -128,6 +145,29 @@ class GroupNorm(nn.GroupNorm):
             y = F.group_norm(xf, self.num_groups, self.weight, self.bias,
                              self.eps)
         return y.to(self.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm over the last axis: eps 1e-6 (torch's default is
+    1e-5), the statistics in fp32 with flax's fast variance E[x^2] -
+    E[x]^2 clamped at 0, (x - mean) * (rsqrt(var + eps) * scale) + bias
+    in fp32, the output in the compute dtype."""
+
+    eps = 1e-6
+
+    def __init__(self, features, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(self.dtype)
 
 
 def _groups(channels: int, groups: int = 32) -> int:
@@ -209,10 +249,12 @@ class Norm(Named):
 
 
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """NCHW bilinear up-sampling. For integer up-sampling ratios this is
-    jax.image.resize('bilinear'): half-pixel centres, and at the border
+    """NCHW bilinear up-sampling, jax.image.resize('bilinear') at any
+    up-sampling ratio (PSPModule's 3 -> 32 and 6 -> 32 too): half-pixel
+    centres, the same two source pixels and weights, and at the border
     jax's renormalised triangle kernel and torch's clamped source
-    coordinate pick the same edge pixel."""
+    coordinate pick the same edge pixel; the two round the weights apart
+    (tests/test_torch_pspnet.py holds them within 1e-5)."""
     if h < x.shape[2] or w < x.shape[3]:
         raise ValueError("resize_bilinear: down-sampling differs from "
                          "jax.image.resize (antialiasing); not supported")

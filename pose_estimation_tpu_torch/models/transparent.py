@@ -13,18 +13,94 @@ JAX model draws them) are an argument: None gives the eval stride
 arange(n) * max(hw // n, 1) % hw; the train step draws
 torch.randperm(hw)[:n] from its generator.
 
-The transformer head (use_transformer) and the equalized layers
-(use_equalized) are options the shipped config leaves off: they raise.
+The options the shipped config leaves off: use_transformer puts a
+post-norm TransformerEncoderBlock after each head branch's 640 layer,
+use_equalized swaps the head's Dense layers for EqualizedDense.
 """
 
 from __future__ import annotations
 
-import torch
+import math
 
-from pose_estimation_tpu_torch.models.layers import Conv, Dense, Named
+import torch
+from torch import nn
+
+from pose_estimation_tpu_torch.models.equalized import EqualizedDense
+from pose_estimation_tpu_torch.models.layers import (
+    Conv, Dense, LayerNorm, Named)
 from pose_estimation_tpu_torch.models.unet import UNet
 
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 5)"
+
+class DenseGeneral(nn.Module):
+    """flax DenseGeneral as MultiHeadDotProductAttention uses it: [..,
+    *in_shape] -> [.., *out_shape], its kernel [*in_shape, *out_shape] and
+    bias [*out_shape] kept in flax's shapes, since gradient centralisation
+    groups by flax's axis 0 (the model width for query / key / value,
+    whose in_shape is (d,); the head for out, whose in_shape is (heads,
+    head_dim))."""
+
+    def __init__(self, in_shape, out_shape, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        fan_in = math.prod(in_shape)
+        self.kernel = nn.Parameter(torch.randn(*in_shape, *out_shape)
+                                   / fan_in ** 0.5)
+        self.bias = nn.Parameter(torch.zeros(*out_shape))
+        self.n_in = len(in_shape)
+
+    def forward(self, x):
+        k = self.kernel.to(self.dtype)
+        flat_in = math.prod(k.shape[:self.n_in])
+        y = x.to(self.dtype).flatten(-self.n_in) @ k.reshape(flat_in, -1)
+        return (y.unflatten(-1, self.bias.shape)
+                + self.bias.to(self.dtype))
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax nn.MultiHeadDotProductAttention(num_heads, qkv_features=d)
+    self-attention over [B, n, d], no mask, no dropout, computed as flax
+    0.12 computes it in the compute dtype: q / sqrt(head_dim) (the root
+    cast to the dtype) before q.k, the softmax in the dtype (exp, its sum
+    and the quotient each rounded to it, force_fp32_for_softmax=False),
+    then the weighted sum of the values and the out projection. Plain
+    products and softmax: the JAX package runs attention in XLA, and these
+    follow its roundings more closely than a fused call would."""
+
+    def __init__(self, d, heads, dtype=torch.float32):
+        super().__init__()
+        hd = (heads, d // heads)
+        self.query = DenseGeneral((d,), hd, dtype)
+        self.key = DenseGeneral((d,), hd, dtype)
+        self.value = DenseGeneral((d,), hd, dtype)
+        self.out = DenseGeneral(hd, (d,), dtype)
+
+    def forward(self, x):
+        q, k, v = self.query(x), self.key(x), self.value(x)  # [B, n, h, e]
+        root = torch.tensor(math.sqrt(q.shape[-1]), dtype=torch.float32)
+        q = q / root.to(q.dtype)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        e = torch.exp(logits - logits.amax(-1, keepdim=True).detach())
+        w = e / e.sum(-1, keepdim=True)
+        return self.out(torch.einsum("bhqk,bkhd->bqhd", w, v))
+
+
+class TransformerEncoderBlock(Named):
+    """The JAX TransformerEncoderBlock, post-norm: x + self-attention,
+    LayerNorm (eps 1e-6), x + Dense(dim_ff) -> relu -> Dense(d),
+    LayerNorm."""
+
+    def __init__(self, d_model, nhead, dim_ff=2048, dtype=torch.float32):
+        super().__init__()
+        self.child(MultiHeadDotProductAttention(d_model, nhead, dtype))
+        self.child(LayerNorm(d_model, dtype))
+        self.child(Dense(d_model, dim_ff, dtype))
+        self.child(Dense(dim_ff, d_model, dtype))
+        self.child(LayerNorm(d_model, dtype))
+
+    def forward(self, x):
+        x = self.LayerNorm_0(x + self.MultiHeadDotProductAttention_0(x))
+        ff = self.Dense_1(torch.relu(self.Dense_0(x)))
+        return self.LayerNorm_1(x + ff)
 
 
 class GeometryNet(Named):
@@ -36,8 +112,11 @@ class GeometryNet(Named):
         super().__init__()
         self.child(Conv(in_ch, channels, 1, 1, True, dtype))
 
+    def depths(self, feat):
+        return torch.relu(self.Conv_0(feat))
+
     def forward(self, feat, intrinsic, xmap, ymap, d_scale):
-        dx = torch.relu(self.Conv_0(feat)) * d_scale[:, None, None, None]
+        dx = self.depths(feat) * d_scale[:, None, None, None]
         fx, fy, cx, cy = (intrinsic[:, i, None, None, None] for i in range(4))
         u, v = xmap[:, None], ymap[:, None]
         return torch.stack([(u - cx) * dx / fx, (v - cy) * dx / fy, dx], -1)
@@ -68,34 +147,52 @@ class DenseFusion(Named):
         return torch.cat([feat1, feat2, pooled], -1)
 
 
+def select_object(x, obj, num_obj, out):
+    """[B, n, num_obj * out] -> [B, n, out]: the channels of each sample's
+    object, selected by a one-hot contraction (a NaN in another object's
+    channels reaches the output, as JAX's einsum lets it)."""
+    b, n, _ = x.shape
+    x = x.reshape(b, n, num_obj, out)
+    onehot = torch.nn.functional.one_hot(obj.long(), num_obj).to(x.dtype)
+    return (x * onehot[:, None, :, None]).sum(2)
+
+
 class PosePredHead(Named):
     """apx [B, n, 1792], obj [B] -> quaternion [B, n, 4], translation
     [B, n, 3], confidence [B, n, 1]: per branch 640 -> 256 -> 128 ->
     num_obj x out (no activation between, as in the JAX head), the
-    object's channels selected by a one-hot contraction (a NaN in another
-    object's channels reaches the output, as JAX's einsum lets it)."""
+    object's channels selected by select_object. use_transformer puts a
+    TransformerEncoderBlock (8, 4 and 2 heads for the three branches)
+    after the 640 layer and drops the 128 layer; use_equalized makes every
+    Dense of the head an EqualizedDense (flax names them
+    EqualizedDense_<n> in the same creation order)."""
 
-    BRANCHES = (4, 3, 1)
+    BRANCHES = ((4, 8), (3, 4), (1, 2))      # (outputs, attention heads)
 
-    def __init__(self, num_obj, dtype=torch.float32):
+    def __init__(self, num_obj, use_transformer=False, use_equalized=False,
+                 dtype=torch.float32):
         super().__init__()
         self.num_obj = num_obj
-        for out in self.BRANCHES:
-            for a, b in ((1792, 640), (640, 256), (256, 128),
-                         (128, num_obj * out)):
-                self.child(Dense(a, b, dtype))
+        dense = EqualizedDense if use_equalized else Dense
+        widths = (640, 256) if use_transformer else (640, 256, 128)
+        self.branches = []
+        for out, heads in self.BRANCHES:
+            layers, a = [], 1792
+            for i, b in enumerate(widths + (num_obj * out,)):
+                layers.append(self.child(dense(a, b, dtype=dtype)))
+                if use_transformer and i == 0:
+                    layers.append(self.child(TransformerEncoderBlock(
+                        640, heads, dtype=dtype)))
+                a = b
+            self.branches.append((out, layers))
 
     def forward(self, apx, obj):
-        b, n, _ = apx.shape
         outs = []
-        for i, out in enumerate(self.BRANCHES):
+        for out, layers in self.branches:
             x = apx
-            for j in range(4):
-                x = getattr(self, f"Dense_{4 * i + j}")(x)
-            x = x.reshape(b, n, self.num_obj, out)
-            onehot = torch.nn.functional.one_hot(
-                obj.long(), self.num_obj).to(x.dtype)
-            outs.append((x * onehot[:, None, :, None]).sum(2))
+            for layer in layers:
+                x = layer(x)
+            outs.append(select_object(x, obj, self.num_obj, out))
         rx, tx, cx = outs
         return rx, tx, torch.sigmoid(cx)
 
@@ -110,12 +207,6 @@ class TRPESNet(Named):
     def __init__(self, num_points=500, num_obj=5, use_transformer=False,
                  use_equalized=False, dtype=torch.float32):
         super().__init__()
-        if use_transformer:
-            raise NotImplementedError(f"TRPESNet(use_transformer=True) "
-                                      f"{NOT_PORTED}")
-        if use_equalized:
-            raise NotImplementedError(f"TRPESNet(use_equalized=True) "
-                                      f"{NOT_PORTED}")
         self.num_points, self.num_obj, self.dtype = num_points, num_obj, dtype
         self.child(UNet(dtype))
         self.child(Conv(64, 32, 1, 1, True, dtype))
@@ -125,7 +216,8 @@ class TRPESNet(Named):
         self.child(Conv(192, 1, 1, 1, True, torch.float32))
         self.child(GeometryNet(192, 64, dtype))
         self.child(DenseFusion(dtype))
-        self.child(PosePredHead(num_obj, dtype))
+        self.child(PosePredHead(num_obj, use_transformer, use_equalized,
+                                dtype))
 
     def forward(self, img, intrinsic, xmap, ymap, d_scale, obj, choose=None):
         b, h, w, _ = img.shape

@@ -1,6 +1,8 @@
 """Standalone transparent-pipeline evaluation (counterpart of
 tools/eval_transparent.py): load the latest checkpoint of a training run
-(the port's ckpt/<step>/state.pt), run the trainer's eval over the
+(the port's ckpt/<step>/state.pt) of the model the config's
+module.transparent_model names (TRPESNet or the PSPNet generation's
+TransparentPoseNet), run the trainer's eval over the
 dataset the config names (ClearGrasp's val split, or the synthetic
 fixture with --synthetic, 16 frames an object), print the per-object
 ADD(-S) table as JSON.

@@ -1,12 +1,18 @@
 """The transparent pipeline's train step, eval step and trainer
-(counterpart of train/transparent_trainer.py), TRPESNet on one device or
+(counterpart of train/transparent_trainer.py), for both generations of
+the transparent model (cfg.module.transparent_model: "trpes", TRPESNet on
+the UNet; "posenet", TransparentPoseNet on the PSPNet), on one device or
 on each rank of a process group (parallel.dist) with the JAX step's
 global-batch semantics.
 
-  batch -> TRPESNet forward at `choose` (torch.randperm(H*W)[:n] from the
-  state's generator, one set for the whole batch and drawn alike on every
-  rank) -> transparent_loss -> gradients (averaged over the group in one
-  flat buffer) -> NaN guard -> Ranger or Adam update, in place
+  batch -> the model's forward at its training draws from the state's
+  generator (TRPESNet: `choose` = torch.randperm(H*W)[:n], one set for
+  the whole batch, drawn alike on every rank; TransparentPoseNet: `choose`
+  [B, n] drawn per sample with replacement, then the decoder's seven
+  dropout masks, each at the global batch's shape, dist.draw_rows) ->
+  transparent_loss (with TransparentPoseNet's boundary term) -> gradients
+  (averaged over the group in one flat buffer) -> NaN guard -> Ranger or
+  Adam update, in place
 
 (TrainStep's stages and guard, the total under "all_loss"). The eval
 step picks each sample's most confident hypothesis, converts it from
@@ -16,10 +22,9 @@ points against the back-projected completed depth at the pixels of the
 highest predicted mask. Kernel 4 launches once a train step (the
 symmetric chamfer) and once an eval batch (ADD-S), 13 times with ICP (10
 iterations, the two trimmed residuals in one launch, the refined pose's
-ADD-S).
-
-The PSPNet generation (cfg.module.transparent_model="posenet") is not
-ported (ROADMAP Queue 1 item 5).
+ADD-S). The eval forward takes the strided pixels arange(n) *
+max(hw // n, 1) % hw (for TransparentPoseNet broadcast to [B, n]) and no
+dropout.
 """
 
 from __future__ import annotations
@@ -44,10 +49,18 @@ from pose_estimation_tpu_torch.losses.transparent_loss import (
     transparent_loss)
 from pose_estimation_tpu_torch.metrics.metric import (
     PerObjectAccumulator, add_metric)
-from pose_estimation_tpu_torch.models.transparent import NOT_PORTED, TRPESNet
+from pose_estimation_tpu_torch.models.pspnet import (
+    DROPOUT_RATES, PSP_SIZES, TransparentPoseNet, dropout_shapes,
+    feature_size)
+from pose_estimation_tpu_torch.models.transparent import TRPESNet
+from pose_estimation_tpu_torch.parallel import dist
 from pose_estimation_tpu_torch.train.state import TrainState
 from pose_estimation_tpu_torch.train.train_step import TrainStep
 from pose_estimation_tpu_torch.train.trainer import Trainer, _generator
+
+# cfg.module.transparent_model -> the model family
+FAMILIES = {"trpes": TRPESNet, "posenet": TransparentPoseNet}
+
 
 def loss_weights(cfg: Config) -> dict:
     """The config's loss weights under the transparent loss's names."""
@@ -57,53 +70,101 @@ def loss_weights(cfg: Config) -> dict:
             "mask": lw.weight_mask, "boundary": lw.weight_mask}
 
 
-def build_model(cfg: Config, device="cpu") -> TRPESNet:
-    """The config's transparent model (bf16 activations with train.amp)."""
-    if cfg.module.transparent_model != "trpes":
-        raise NotImplementedError(
-            f"transparent_model={cfg.module.transparent_model!r} "
-            f"{NOT_PORTED}")
+def build_model(cfg: Config, device="cpu"):
+    """The config's transparent model, by cfg.module.transparent_model
+    (FAMILIES), bf16 activations with train.amp. Another name, or
+    TransparentPoseNet on a crop too small for its PSP pyramid, raises
+    ValueError."""
+    family = FAMILIES.get(cfg.module.transparent_model)
+    if family is None:
+        raise ValueError(f"transparent_model="
+                         f"{cfg.module.transparent_model!r}: not one of "
+                         f"{sorted(FAMILIES)}")
+    if (family is TransparentPoseNet
+            and feature_size(cfg.data.input_size) < max(PSP_SIZES)):
+        raise ValueError(f"transparent_model='posenet' at "
+                         f"data.input_size={cfg.data.input_size}: the PSP "
+                         f"pyramid needs {max(PSP_SIZES)}x{max(PSP_SIZES)} "
+                         "features, a crop of at least 48 px")
     dtype = torch.bfloat16 if cfg.train.amp else torch.float32
-    return TRPESNet(num_points=cfg.data.num_points,
-                    num_obj=cfg.module.num_cls, dtype=dtype).to(device)
+    return family(num_points=cfg.data.num_points,
+                  num_obj=cfg.module.num_cls, dtype=dtype).to(device)
 
 
-def apply_transparent_model(model, batch: dict, choose=None) -> dict:
+def eval_choose(hw: int, n: int, device) -> torch.Tensor:
+    """The eval pixels: arange(n) * max(hw // n, 1) % hw."""
+    return torch.arange(n, device=device) * max(hw // n, 1) % hw
+
+
+def apply_transparent_model(model, batch: dict, choose=None,
+                            masks=None) -> dict:
     """The model's outputs under the loss's names: quat, trans, conf,
-    normal, depth, mask."""
-    rx, tx, cx, n, d, m = model(batch["img"], batch["intrinsic"],
-                                batch["xmap"], batch["ymap"],
-                                batch["d_scale"], batch["obj"], choose)
+    normal, depth, mask, and TransparentPoseNet's color and boundary.
+    `choose` None: the eval pixels; `masks`: TransparentPoseNet's dropout
+    keep masks in training (None: no dropout)."""
+    args = (batch["img"], batch["intrinsic"], batch["xmap"], batch["ymap"],
+            batch["d_scale"], batch["obj"])
+    if isinstance(model, TransparentPoseNet):
+        if choose is None:
+            b, h, w, _ = batch["img"].shape
+            choose = eval_choose(h * w, model.num_points,
+                                 batch["img"].device).expand(b, -1)
+        return model(*args, choose, masks)
+    rx, tx, cx, n, d, m = model(*args, choose)
     return {"quat": rx, "trans": tx, "conf": cx, "normal": n, "depth": d,
             "mask": m}
 
 
 def draw_choose(generator: torch.Generator, hw: int, n: int) -> torch.Tensor:
-    """The training pixels: the first n of one permutation of H*W from
-    `generator` (on its device), shared by the batch."""
+    """TRPESNet's training pixels: the first n of one permutation of H*W
+    from `generator` (on its device), shared by the batch."""
     return torch.randperm(hw, generator=generator,
                           device=generator.device)[:n]
+
+
+def draw_posenet(generator: torch.Generator, b: int, h: int, w: int,
+                 n: int) -> tuple:
+    """TransparentPoseNet's training draws from `generator` (on its
+    device), this rank's rows of draws made at the global batch's shape
+    (dist.draw_rows), in this order: the pixels [b, n], each sample's
+    drawn with replacement (JAX's randint), then the decoder's seven
+    dropout keep masks (dropout_shapes, kept with probability 1 - rate)."""
+    dev = generator.device
+    choose = dist.draw_rows(lambda s: torch.randint(
+        0, h * w, s, generator=generator, device=dev), (b, n))
+    masks = [dist.draw_rows(lambda s, r=rate: torch.rand(
+        s, generator=generator, device=dev) < 1.0 - r, shape)
+        for shape, rate in zip(dropout_shapes(b, h, w), DROPOUT_RATES)]
+    return choose, masks
 
 
 class TransparentTrainStep(TrainStep):
     """step(state, batch) -> metrics dict of 0-d device tensors (the loss
     terms, skipped_nonfinite, grad_norm); `weights` as loss_weights
-    gives them. `losses(batch, choose)` takes the pixels explicitly (a
-    test hands over the JAX step's)."""
+    gives them. `draws(generator, batch)` makes the training draws of the
+    model's family, and `losses(batch, choose, masks=None)` takes them
+    explicitly (a test hands over the JAX step's)."""
 
     total = "all_loss"
 
     def __init__(self, model, tx, weights: dict):
         self.model, self.tx, self.weights = model, tx, weights
 
-    def losses(self, batch: dict, choose: torch.Tensor) -> dict:
-        pred = apply_transparent_model(self.model, batch, choose)
+    def draws(self, generator: torch.Generator, batch: dict) -> tuple:
+        """(choose, masks): TRPESNet's pixels and None, or
+        TransparentPoseNet's draw_posenet."""
+        b, h, w, _ = batch["img"].shape
+        if isinstance(self.model, TransparentPoseNet):
+            return draw_posenet(generator, b, h, w, self.model.num_points)
+        return draw_choose(generator, h * w, self.model.num_points), None
+
+    def losses(self, batch: dict, choose: torch.Tensor,
+               masks: list | None = None) -> dict:
+        pred = apply_transparent_model(self.model, batch, choose, masks)
         return transparent_loss(pred, batch, self.weights)
 
     def __call__(self, state: TrainState, batch: dict) -> dict:
-        _, h, w, _ = batch["img"].shape
-        choose = draw_choose(state.generator, h * w, self.model.num_points)
-        losses = self.losses(batch, choose)
+        losses = self.losses(batch, *self.draws(state.generator, batch))
         return self.apply(state, losses, self.gradients(losses))
 
 
@@ -179,7 +240,16 @@ class TransparentTrainer(Trainer):
     on none), fit and device transfer; under a process group each rank
     trains and evaluates its shard (epoch_indices / eval_indices), the LR
     horizon is the shards', rank 0 logs and saves, and the eval tables
-    are merged before the summary.
+    are merged before the summary. The NaN guard observes each step as
+    it ends, as the JAX transparent trainer does: an abort after
+    max_consecutive non-finite steps comes at the JAX trainer's step, and
+    the emergency checkpoint holds the state of the step it is saved
+    under.
+
+    test_epoch evaluates `test_dataset`, as both KRRN trainers do. Here
+    the port departs from the JAX TransparentTrainer on purpose: that one
+    takes the batch count from its test_dataset but reads the frames of
+    its training dataset.
 
     The ADD threshold of an object is 0.1 x the diameter of its first
     500 model points, taken when the object is first evaluated (the JAX
@@ -233,17 +303,17 @@ class TransparentTrainer(Trainer):
             batches = batches[:steps]
         t0 = time.time()
         stream = self._batches(self.dataset, batches, epoch * 131)
-        prev = None     # the guard reads the previous step's metrics
         try:
             for bi, batch in enumerate(stream):
                 metrics = self.train_step(self.state, self._to_device(batch))
-                if prev is not None and self.guard.observe(
-                        self.state.step - 1, prev, train_state=self.state):
+                # the guard reads this step's metrics (one host sync a
+                # step, as the JAX transparent trainer waits for each)
+                if self.guard.observe(self.state.step, metrics,
+                                      train_state=self.state):
                     self.log.log(self.state.step,
                                  {"epoch": epoch, "aborted_divergence": 1.0},
                                  echo=True)
                     break
-                prev = metrics
                 if bi % 20 == 0:
                     m = {k: float(v) for k, v in metrics.items()}
                     m["epoch"] = epoch

@@ -3,7 +3,7 @@
 - cli.py --dataset linemod trains and evaluates on a fake BOP tree (the
   port's own writer), and --eval_mode evaluates its test split; YCB-V
   builds through --dataset ycb; the transparent pipeline's PSPNet
-  generation refuses with its queue item named;
+  generation refuses a crop under its PSP pyramid's 48 px;
 - --resume_backbone_only from a run with another head width copies
   exactly the tensors whose name and shape match, and nothing else;
 - train/checkpoint.save_params_npz is read by the JAX package's
@@ -151,13 +151,15 @@ def test_cli_ycb_and_the_parts_not_ported(tmp_path, capsys):
                    str(tmp_path / "run"), "--eval_mode", "--device", "cpu"])
     assert rc == 0
     assert '"count": 2' in capsys.readouterr().out
+    # the PSPNet generation refuses a crop its PSP pyramid cannot pool
     posenet = tmp_path / "posenet.py"
     posenet.write_text(
         "from pose_estimation_tpu_torch.configs import schema\n\n\n"
         "def get_config():\n"
         "    return schema.override(schema.transparent_cleargrasp(),\n"
-        "        **{'module.transparent_model': 'posenet'})\n")
-    with pytest.raises(SystemExit, match="Queue 1 item 5"):
+        "        **{'module.transparent_model': 'posenet',\n"
+        "           'data.input_size': 32})\n")
+    with pytest.raises(SystemExit, match="at least 48 px"):
         cli.main(["--config", str(posenet), "--synthetic",
                   "--frames_per_object", "1", "--device", "cpu",
                   "--log_dir", str(tmp_path / "posenet_run")])

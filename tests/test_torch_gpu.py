@@ -998,6 +998,42 @@ def test_transparent_step_and_eval_launches_and_cpu_parity(dev):
     assert torch.equal(cuda_out["icp_accepted"], cpu_out["icp_accepted"])
 
 
+def test_posenet_step_launches_and_cpu_parity(dev):
+    """The tiny TransparentPoseNet (fp32, 48-px crops) on the card: one
+    kernel 4 launch a train step from the same pixels and dropout masks,
+    its loss terms (loss_b among them) against the CPU's at 1e-4
+    relative; one launch an eval batch, its add_dis against the CPU's."""
+    from pose_estimation_tpu_torch.models.pspnet import TransparentPoseNet
+    from pose_estimation_tpu_torch.train.transparent_trainer import (
+        TransparentTrainStep, build_transparent_eval_step)
+    torch.manual_seed(0)
+    model = TransparentPoseNet(3, 32)
+    batch = _transparent_batch(dev, h=48)
+    batch["boundary"] = (batch["mask"] > 0.9).float()
+    step = TransparentTrainStep(model, None, dict.fromkeys(
+        ("distance", "rotation", "normal", "depth", "mask", "boundary"),
+        1.0))
+    choose, masks = step.draws(torch.Generator().manual_seed(1),
+                               {k: v.cpu() for k, v in batch.items()})
+    terms, adds = {}, {}
+    for where in ("cuda", "cpu"):
+        model.to(where)
+        tb = {k: v.to(where) for k, v in batch.items()}
+        pointops.nearest_multi.launches = 0
+        losses = step.losses(tb, choose.to(where),
+                             [m.to(where) for m in masks])
+        step.gradients(losses)
+        terms[where] = {k: v.item() for k, v in losses.items()}
+        adds[where] = build_transparent_eval_step(model)(tb)["add_dis"].cpu()
+        if where == "cuda":
+            assert pointops.nearest_multi.launches == 2
+    assert terms["cpu"]["loss_b"] > 0
+    for k, v in terms["cpu"].items():
+        assert abs(terms["cuda"][k] - v) <= 1e-4 * max(1.0, abs(v)), k
+    torch.testing.assert_close(adds["cuda"], adds["cpu"], rtol=1e-4,
+                               atol=1e-6)
+
+
 def test_nearest_at_eps_zero_and_icp_on_the_card(dev):
     """Kernel 4 with eps = 0 (ICP's trimmed residual) equals the plain
     version bit for bit, a coincident pair at distance 0; gated ICP on

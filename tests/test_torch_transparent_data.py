@@ -20,8 +20,8 @@
       ADD(-S) and ICP);
   cli.py --dataset cleargrasp on the fixture (one object of the three the
       config names has a mesh: the ADD thresholds are taken for the
-      objects evaluated); transparent_model="posenet" refuses with its
-      queue item; the CLI, the eval tool and the trainer raise without a
+      objects evaluated); transparent_model="posenet" refuses crops too
+      small for its PSP pyramid; the CLI, the eval tool and the trainer raise without a
       card unless asked for the CPU.
 """
 
@@ -284,11 +284,14 @@ def test_cli_on_the_cleargrasp_fixture(tmp_path):
 
 
 def test_posenet_generation_refuses(tmp_path):
+    """The PSPNet generation refuses this file's 32-px crops: its PSP
+    pyramid pools 6 x 6 features, 48-px crops at least (its CPU tests:
+    test_torch_pspnet_train.py)."""
     path = tmp_path / "posenet.py"
     path.write_text(CONFIG_PY.format(pkg="pose_estimation_tpu_torch").replace(
         '"train.refine": True', '"train.refine": True,\n        '
         '"module.transparent_model": "posenet"'))
-    with pytest.raises(SystemExit, match=re.escape("Queue 1 item 5")):
+    with pytest.raises(SystemExit, match=re.escape("at least 48 px")):
         cli.main(["--config", str(path), "--synthetic", "--device", "cpu",
                   "--log_dir", str(tmp_path / "r")])
 

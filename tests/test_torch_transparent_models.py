@@ -9,7 +9,8 @@ parameters:
       (measured 6.1e-6: fp32 convolution orders);
   TRPESNet's flax tree both ways: a strict flax_to_torch of a freshly
       initialised JAX model and torch_to_flax back, key for key and bit
-      for bit; the options the shipped config leaves off raise;
+      for bit (the options the shipped config leaves off:
+      test_torch_transparent_options.py);
   transparent_loss: every term at 1e-5 relative (measured 1.0e-6) on
       symmetric and non-symmetric samples, with a hypothesis that puts a
       model point exactly on its target (zero direct and chamfer
@@ -180,13 +181,6 @@ def test_head_select_keeps_a_nan_of_another_object(models):
     finally:
         with torch.no_grad():
             head.bias.copy_(saved)
-
-
-@pytest.mark.parametrize("kw", [{"use_transformer": True},
-                                {"use_equalized": True}])
-def test_options_left_off_raise(kw):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TRPESNet(W.NUM_POINTS, W.NUM_OBJ, **kw)
 
 
 # --- the loss ---------------------------------------------------------------

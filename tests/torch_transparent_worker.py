@@ -1,11 +1,12 @@
-"""The tiny transparent setup of tests/test_torch_transparent_*.py, and the
-rank processes of its 2-rank gloo group.
+"""The tiny transparent setup of tests/test_torch_transparent_*.py and
+tests/test_torch_pspnet*.py (TRPESNet and the PSPNet generation's
+TransparentPoseNet), and the rank processes of their 2-rank gloo groups.
 
 Each rank joins a gloo group through the port's distributed_init on a
 FileStore, runs the port's transparent train step on its rows of the
-global batch with the test's pixels `choose` (or with its generator's own
-draw), and saves what it saw (torch.save, <out_dir>/<task>_<rank>.pt).
-It imports torch, numpy and the port only.
+global batch with the test's draws (or with its generator's own), and
+saves what it saw (torch.save, <out_dir>/<task>_<rank>.pt). It imports
+torch, numpy and the port only.
 """
 
 from __future__ import annotations
@@ -91,6 +92,53 @@ def port_setup(gen_seed: int = 0):
     return state, TransparentTrainStep(model, tx, loss_weights(cfg))
 
 
+# the PSPNet generation (TransparentPoseNet) at 48-px crops: 6 x 6
+# features, the smallest its PSP pyramid pools (the JAX tests' size)
+PSP_CROP = 48
+DRAW_SEED = 7
+
+
+def posenet_batch(seed: int = 0, b: int = GLOBAL_BS) -> dict:
+    """tiny_batch at PSP_CROP with a boundary label (a tenth of the
+    pixels), drawn from its own seed."""
+    batch = tiny_batch(seed, b, PSP_CROP)
+    rng = np.random.RandomState(seed + 100)
+    batch["boundary"] = (rng.rand(b, PSP_CROP, PSP_CROP, 1) > 0.9).astype(
+        np.float32)
+    return batch
+
+
+def posenet_draws(b: int = GLOBAL_BS) -> tuple:
+    """The test's TransparentPoseNet training draws at the global batch:
+    the pixels [b, NUM_POINTS] (with repeats) and the decoder's seven
+    keep masks, NCHW bool, in flax's trace order."""
+    from pose_estimation_tpu_torch.models.pspnet import (
+        DROPOUT_RATES, dropout_shapes)
+    rng = np.random.RandomState(DRAW_SEED)
+    choose = rng.randint(0, PSP_CROP * PSP_CROP, (b, NUM_POINTS)).astype(
+        np.int32)
+    masks = [rng.rand(*shape) < 1.0 - rate for shape, rate in zip(
+        dropout_shapes(b, PSP_CROP, PSP_CROP), DROPOUT_RATES)]
+    return choose, masks
+
+
+def posenet_setup(gen_seed: int = 0):
+    """(state, step) of the tiny TransparentPoseNet with weights seeded 2."""
+    from pose_estimation_tpu_torch.configs import schema
+    from pose_estimation_tpu_torch.train.optim import make_optimizer
+    from pose_estimation_tpu_torch.train.state import TrainState
+    from pose_estimation_tpu_torch.train.transparent_trainer import (
+        TransparentTrainStep, build_model, loss_weights)
+    cfg = config(schema, **{"module.transparent_model": "posenet",
+                            "data.input_size": PSP_CROP})
+    torch.manual_seed(2)
+    model = build_model(cfg)
+    tx = make_optimizer(cfg, total_steps=TOTAL_STEPS)
+    state = TrainState.create(model, tx,
+                              torch.Generator().manual_seed(gen_seed))
+    return state, TransparentTrainStep(model, tx, loss_weights(cfg))
+
+
 def local_batch(batch: dict) -> dict:
     """This rank's rows of a global numpy batch, as torch tensors."""
     from pose_estimation_tpu_torch.parallel import dist
@@ -122,9 +170,32 @@ def step_seeded(batch: dict, steps: int = 2) -> dict:
     return {"steps": [snapshot(state, step(state, tb)) for _ in range(steps)]}
 
 
+def step_posenet_injected(batch: dict) -> dict:
+    """One TransparentPoseNet step at the test's draws, this rank's rows
+    of them."""
+    from pose_estimation_tpu_torch.parallel import dist
+    state, step = posenet_setup()
+    choose, masks = posenet_draws()
+    rows = lambda a: dist.rank_rows(torch.from_numpy(a))
+    losses = step.losses(local_batch(batch), rows(choose),
+                         [rows(m) for m in masks])
+    return snapshot(state, step.apply(state, losses, step.gradients(losses)))
+
+
 TASKS = {
     "injected": lambda p: step_injected(p["batch"]),
     "seeded": lambda p: step_seeded(p["batch"]),
+}
+def step_posenet_seeded(batch: dict) -> dict:
+    """One TransparentPoseNet step with the generator's own draws, seeded
+    5 on every rank."""
+    state, step = posenet_setup(gen_seed=5)
+    return snapshot(state, step(state, local_batch(batch)))
+
+
+POSENET_TASKS = {
+    "posenet_injected": lambda p: step_posenet_injected(p["batch"]),
+    "posenet_seeded": lambda p: step_posenet_seeded(p["batch"]),
 }
 
 
@@ -136,7 +207,7 @@ def run(rank: int, world: int, store: str, tasks: list, payload: dict):
         raise RuntimeError("distributed_init did not join the group")
     try:
         for name in tasks:
-            torch.save(TASKS[name](payload),
+            torch.save({**TASKS, **POSENET_TASKS}[name](payload),
                        os.path.join(payload["out_dir"], f"{name}_{rank}.pt"))
     finally:
         dist.destroy()
