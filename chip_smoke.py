@@ -154,6 +154,28 @@ Phases (each raises on failure, the script then exits non-zero):
      --config setting transparent_model="posenet" on the ClearGrasp
      fixture (one step, one eval batch) and tools/eval_transparent.py
      --ckpt from its checkpoint, launches held;
+ 17. the tools on the card (outputs under build/smoke/tools, deleted at
+     the end): (a) phase 8's run directory: the tb/train and tb/eval
+     event files parsed with the port's reader (every CRC checked), each
+     float of the JSONL records under its tag and step, the overlay
+     image in the eval stream and viz/epoch_0000.png decoded with OpenCV
+     to its shape; (b) tools/parity_check.py on the card and the CPU (16
+     scenes x 128 points, the RANSAC subsets and Umeyama hypotheses
+     drawn once on the CPU): the rotation round trips within 1e-5, each
+     cross-backend median delta within PARITY_TOL; (c)
+     tools/refine_declarative.py at its defaults on the card against
+     the port's CPU run within 1e-4 x max(1, |CPU's|), the translation
+     error falling,
+     launches 0/0/0/12/0 (10 ICP iterations, 2 ADD(-S)); (d)
+     tools/train_synthetic_convergence.py --variants raw_xyz,flagship
+     (2 epochs of 64 frames at bs 16, the full-width flagship being the
+     unmodified schema.Config()), launches exactly the steps x phase 7's
+     train step + the eval batches x an eval forward, each variant's
+     samples/s and per-object table; --eval_from_ckpt on raw_xyz
+     reproducing its table within 1e-4; tools/eval_solver_sweep.py on
+     raw_xyz's checkpoint (4 x 8 eval forwards); (e)
+     tools/train_transparent_convergence.py --refine (2 epochs of 32
+     frames): launches 1 a train step and 13 an eval batch with ICP;
 and checks that nothing of JAX or of the JAX package was imported.
 The last lines are the kernels' JSON summary, the card's name and power
 limit, and {"ok": true, "device": {...}}.
@@ -2765,6 +2787,184 @@ def posenet_full_width(dev):
              "peak_gib": peak, "option_step_ms": options}, paths)
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the tools on the card
+# ---------------------------------------------------------------------------
+
+TOOLS_DIR = ROOT / "build" / "smoke" / "tools"
+# parity_check's cross-backend limits, card against CPU, on each row's
+# median (PERF.md section 6): EPnP's PCA control points nearly tie
+# on the tool's cube scenes, and the Umeyama pose, exact to fp32, is read
+# through arccos near 0 degrees
+PARITY_TOL = {"epnp_deg": 0.05, "epnp_m": 5e-4, "ransac_deg": 0.01,
+              "ransac_m": 1e-4, "umeyama_deg": 0.1, "umeyama_m": 1e-5,
+              "rot_roundtrip": 1e-5}
+REFINE_TOL = 1e-4
+CONVERGENCE_ARGS = ["--epochs", "2", "--frames_per_object", "16"]
+TRANSPARENT_TOOL_ARGS = ["--epochs", "2", "--frames_per_object", "8",
+                         "--refine"]
+OVERLAY_CROPS = 4               # the overlay's crops at phase 8's bs of 8
+
+
+def check_tb_run(run_dir: Path) -> None:
+    """(a): a training run's event files, parsed with the port's framing
+    (every CRC checked), hold each float of its JSONL records under its
+    tag and step; the eval stream holds the overlay, and
+    viz/epoch_0000.png decodes to the grid's shape."""
+    import cv2
+
+    from pose_estimation_tpu_torch.utils.tb import read_events
+    for name in ("train", "eval"):
+        (path,) = (run_dir / "tb" / name).iterdir()
+        events = read_events(str(path))
+        got = {(e["step"], tag) for e in events for tag, _ in e["values"]}
+        want = {(r["step"], k) for r in _lines(run_dir / f"{name}.jsonl")
+                for k, v in r.items()
+                if k not in ("step", "time") and isinstance(v, float)}
+        if not want or not want <= got:
+            raise AssertionError(f"tb/{name}: {sorted(want - got)[:5]} "
+                                 "missing")
+        log(f"  tb/{name}: {len(events)} records, {len(got)} (step, tag) "
+            f"pairs, every CRC checked")
+    images = [v for e in events for tag, v in e["values"]
+              if tag == "eval/pred_vs_gt"]
+    grid = cv2.imread(str(run_dir / "viz" / "epoch_0000.png"))
+    if not images or grid is None:
+        raise AssertionError("the eval overlay is missing")
+    shape = (images[0]["height"], images[0]["width"], 3)
+    if grid.shape != shape or grid.shape[1] != OVERLAY_CROPS * grid.shape[0]:
+        raise AssertionError(f"overlay {grid.shape}, its image {shape}")
+    log(f"  viz/epoch_0000.png: {grid.shape} ({OVERLAY_CROPS} crops), as "
+        "the event file's image")
+
+
+def _parity(report: dict) -> None:
+    """(b): the round trips and each cross-backend median delta."""
+    for name, rows in report["backends"].items():
+        if rows["rot_roundtrip"]["max"] > PARITY_TOL["rot_roundtrip"]:
+            raise AssertionError(f"{name}: rotation round trip "
+                                 f"{rows['rot_roundtrip']['max']}")
+    delta = report["cross_backend_delta"]
+    log(f"  cross-backend median deltas {delta}; limits {PARITY_TOL}")
+    bad = {k: v for k, v in delta.items() if v > PARITY_TOL[k]}
+    if bad:
+        raise AssertionError(f"parity_check deltas over their limits: {bad}")
+
+
+def _refine_close(a: dict, b: dict) -> float:
+    """The largest difference of two refine_declarative reports, each
+    value's over max(1, |b's|): the mm and degree figures come from fp32
+    poses whose translations are 0.6-1.1 m, where an ulp is 6e-5 mm."""
+    pairs = [(a[p][k], b[p][k]) for p in ("before", "after") for k in a[p]]
+    pairs.append((a["mean_residual_mm"], b["mean_residual_mm"]))
+    return max(abs(x - y) / max(1.0, abs(y)) for x, y in pairs)
+
+
+def _per_object_delta(a: dict, b: dict) -> float:
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"objects {sorted(a)} != {sorted(b)}")
+    return max(abs(a[c][k] - b[c][k]) for c in a for k in a[c])
+
+
+def tools_on_the_card(dev):
+    """Phase 17: (a) phase 8's run directory: the TensorBoard mirror and
+    the overlay; (b) parity_check, card and CPU; (c) refine_declarative
+    on the card against the port's CPU run; (d) train_synthetic_
+    convergence (raw_xyz and flagship), --eval_from_ckpt and
+    eval_solver_sweep on raw_xyz's checkpoint; (e) train_transparent_
+    convergence with ICP. Outputs under build/smoke/tools, deleted at the
+    end. Returns the launches by path."""
+    import torch
+    from pose_estimation_tpu_torch.tools import (
+        eval_solver_sweep, parity_check, refine_declarative,
+        train_synthetic_convergence as conv, train_transparent_convergence)
+    t_phase = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    TOOLS_DIR.mkdir(parents=True)
+    paths = {}
+
+    log("  (a) the TensorBoard mirror and the overlay of phase 8's run")
+    check_tb_run(ROOT / "build" / "smoke" / "train_run")
+
+    log("  (b) tools/parity_check.py: 16 scenes x 128 points, the card "
+        "and the CPU from the same draws")
+    _parity(parity_check.main(["--out", str(TOOLS_DIR / "parity.json")]))
+
+    log("  (c) tools/refine_declarative.py (16 frames, 10 deg / 20 mm, "
+        "trim 0.3, 10 iterations), the card and the CPU")
+    reset_counts()
+    card, ms = _sync_ms(lambda: refine_declarative.main([]))
+    paths["tool_refine"] = read_counts()
+    cpu = refine_declarative.main(["--device", "cpu"])
+    want = dict(NO_LAUNCH, min_dists=ICP_ITERS + 2)      # + 2 ADD(-S)
+    _check_counts("refine_declarative", paths["tool_refine"],
+                  {"the run": (1, want)})
+    diff = _refine_close(card, cpu)
+    log(f"  card {json.dumps(card)} in {ms:.0f} ms; CPU {json.dumps(cpu)}; "
+        f"largest difference {diff:.3g} x max(1, |CPU's|) (limit "
+        f"{REFINE_TOL})")
+    if not card["after"]["trans_mm"] < card["before"]["trans_mm"]:
+        raise AssertionError("ICP did not reduce the translation error")
+    if diff > REFINE_TOL:
+        raise AssertionError(f"refine_declarative card vs CPU: {diff}")
+
+    log("  (d) tools/train_synthetic_convergence.py --variants "
+        "raw_xyz,flagship " + " ".join(CONVERGENCE_ARGS))
+    runs = TOOLS_DIR / "convergence"
+    reset_counts()
+    res = conv.main(CONVERGENCE_ARGS + [
+        "--variants", "raw_xyz,flagship", "--log_root", str(runs),
+        "--out", str(TOOLS_DIR / "results_synthetic.json")])
+    torch.cuda.synchronize()
+    paths["tool_convergence"] = read_counts()
+    steps = sum(v["steps"] for v in res["variants"])
+    evals = 2 * 128 // 16            # one test_epoch of 128 frames each
+    _check_counts("train_synthetic_convergence", paths["tool_convergence"],
+                  {"train steps": (steps, LITE_TRAIN),
+                   "eval forwards": (evals, LITE_EVAL)})
+    for v in res["variants"]:
+        log(f"  {v['variant']}: {v['steps']} steps in {v['train_seconds']} s"
+            f" = {v['train_fps']} samples/s; per object "
+            f"{json.dumps(v['per_object'])}")
+    raw = res["variants"][0]
+    ckpt = str(runs / "raw_xyz" / "ckpt")
+    reset_counts()
+    again = conv.main(["--variants", "raw_xyz", "--eval_from_ckpt", ckpt,
+                       "--log_root", str(TOOLS_DIR / "again"),
+                       "--out", str(TOOLS_DIR / "again.json")])
+    paths["tool_eval_from_ckpt"] = read_counts()
+    delta = _per_object_delta(again["variants"][0]["per_object"],
+                              raw["per_object"])
+    log(f"  --eval_from_ckpt: the per-object table within {delta:.3g} of "
+        "the run's")
+    if delta > 1e-4:
+        raise AssertionError(f"--eval_from_ckpt table off by {delta}")
+    reset_counts()
+    sweep = eval_solver_sweep.main(["--ckpt", ckpt, "--log_dir",
+                                    str(TOOLS_DIR / "sweep")])
+    paths["tool_sweep"] = read_counts()
+    _check_counts("eval_solver_sweep", paths["tool_sweep"],
+                  {"eval forwards": (4 * 128 // 16, LITE_EVAL)})
+    log(f"  eval_solver_sweep: {json.dumps(sweep)}")
+
+    log("  (e) tools/train_transparent_convergence.py "
+        + " ".join(TRANSPARENT_TOOL_ARGS))
+    reset_counts()
+    tres = train_transparent_convergence.main(TRANSPARENT_TOOL_ARGS + [
+        "--log_root", str(TOOLS_DIR / "transparent"),
+        "--out", str(TOOLS_DIR / "results_transparent.json")])
+    paths["tool_transparent"] = read_counts()
+    _check_counts("train_transparent_convergence", paths["tool_transparent"],
+                  {"train steps": (tres["steps"], TRANSPARENT_TRAIN),
+                   "eval batches with ICP": (128 // 16,
+                                             TRANSPARENT_EVAL_ICP)})
+    log(f"  trpes: {tres['steps']} steps in {tres['train_seconds']} s = "
+        f"{tres['train_fps']} samples/s; {json.dumps(tres['overall'])}")
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    log(f"  phase 17 took {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -2896,6 +3096,11 @@ def main(argv=None) -> int:
     paths.update(posenet_paths)
     results["min_dists"]["posenet"] = posenet_row
 
+    log("[17] the tools on the card: the TensorBoard mirror and overlays, "
+        "parity_check, refine_declarative, the convergence tools and the "
+        "solver sweep")
+    paths.update(tools_on_the_card(dev))
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "flax", "optax",
                                            "pose_estimation_tpu"))
@@ -2918,7 +3123,7 @@ def main(argv=None) -> int:
                                              "serving_maps",
                                              "transparent_loss", "posenet")
                            if k in r}})
-    log(f"chip_smoke: all 16 phases in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: all 17 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

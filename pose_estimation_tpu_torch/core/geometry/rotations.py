@@ -1,9 +1,10 @@
 """Rotation conversions (counterpart of core/geometry/rotations.py).
 
-What the serving and transparent paths need: Rodrigues both ways,
-quaternion to matrix, rigid transform of points, geodesic angle. Conventions as in the JAX package: matrices act on
-column vectors, axis-angle is (..., 3) with angle = |v|, quaternions are
-(w, x, y, z). Every branch is a `torch.where` over both values, so the
+Rodrigues both ways, quaternions both ways, the 6-D (ortho6d) form both
+ways, intrinsic Euler angles, uniform random rotations, rigid transform
+of points, geodesic angle. Conventions as in the JAX package: matrices
+act on column vectors, axis-angle is (..., 3) with angle = |v|,
+quaternions are (w, x, y, z). Every branch is a `torch.where` over both values, so the
 functions run under torch.func.vmap/jacfwd (the LM Jacobian).
 """
 
@@ -12,6 +13,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from pose_estimation_tpu_torch.core.mathsafe import safe_normalize
 
 _EPS = 1e-8
 
@@ -91,6 +94,52 @@ def matrix_to_axis_angle(m: torch.Tensor) -> torch.Tensor:
     scale = torch.where(n < _EPS, torch.full_like(n, 2.0),
                         angle / torch.clamp(n, min=_EPS))
     return xyz * scale[..., None]
+
+
+def ortho6d_to_matrix(poses: torch.Tensor) -> torch.Tensor:
+    """6-D continuous representation (..., 6) -> matrix (Zhou et al.,
+    CVPR'19): columns x = normalize(poses[..., :3]), z = normalize(x x
+    poses[..., 3:]), y = z x x."""
+    x = safe_normalize(poses[..., 0:3], eps=_EPS)
+    z = safe_normalize(torch.cross(x, poses[..., 3:6], dim=-1), eps=_EPS)
+    y = torch.cross(z, x, dim=-1)
+    return torch.stack([x, y, z], -1)
+
+
+def matrix_to_ortho6d(m: torch.Tensor) -> torch.Tensor:
+    """Matrix -> its first two columns, flattened (..., 6)."""
+    return torch.cat([m[..., :, 0], m[..., :, 1]], -1)
+
+
+def _axis_rotation(axis: str, a: torch.Tensor) -> torch.Tensor:
+    c, s = torch.cos(a), torch.sin(a)
+    z, o = torch.zeros_like(a), torch.ones_like(a)
+    rows = {"x": ((o, z, z), (z, c, -s), (z, s, c)),
+            "y": ((c, z, s), (z, o, z), (-s, z, c)),
+            "z": ((c, -s, z), (s, c, z), (z, z, o))}[axis]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def euler_to_matrix(angles: torch.Tensor, order: str = "xyz") -> torch.Tensor:
+    """Intrinsic Euler angles (..., 3), radians -> matrix, the product of
+    the axis rotations in `order`."""
+    m = _axis_rotation(order[0], angles[..., 0])
+    for i, ax in enumerate(order[1:], start=1):
+        m = m @ _axis_rotation(ax, angles[..., i])
+    return m
+
+
+def random_rotation(generator: torch.Generator | None = None,
+                    shape: tuple = (),
+                    normals: torch.Tensor | None = None) -> torch.Tensor:
+    """Uniform random rotations (*shape, 3, 3) from normalised Gaussian
+    quaternions, drawn from `generator` on its device, or from `normals`
+    (*shape, 4) when given (the JAX package's jax.random.normal draws,
+    say)."""
+    if normals is None:
+        normals = torch.randn(tuple(shape) + (4,), generator=generator,
+                              device=generator.device if generator else None)
+    return quat_to_matrix(quat_normalize(normals))
 
 
 def angular_distance(r1: torch.Tensor, r2: torch.Tensor,

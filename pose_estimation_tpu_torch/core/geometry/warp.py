@@ -1,4 +1,4 @@
-"""Affine crop coordinates and samplers (counterpart of
+"""Affine crop coordinates, samplers and crop_resize (counterpart of
 core/geometry/warp.py); single image, [H, W] or [H, W, C]."""
 
 from __future__ import annotations
@@ -6,18 +6,27 @@ from __future__ import annotations
 import torch
 
 
-def crop_affine_coords(center: torch.Tensor, side: torch.Tensor,
-                       out_size: tuple[int, int]) -> torch.Tensor:
-    """Source (x, y) coordinates [out_h, out_w, 2] of an unrotated square
-    crop of side `side` centred at `center` [2] (cv2.warpAffine anchor at
+def crop_affine_coords(center: torch.Tensor, side, out_size: tuple[int, int],
+                       rot_deg: float = 0.0) -> torch.Tensor:
+    """Source (x, y) coordinates [out_h, out_w, 2] of a square crop of side
+    `side` (a number, [] or [2], the x component used) centred at
+    `center` [2] and rotated by `rot_deg` (cv2.warpAffine anchor at
     (out_w/2, out_h/2), as get_affine_transform builds it)."""
     out_h, out_w = out_size
     dev = center.device
+    side = torch.as_tensor(side, dtype=torch.float32, device=dev)
+    if side.ndim == center.ndim:                     # the [2] form
+        side = side[..., 0]
     dx = (torch.arange(out_w, dtype=torch.float32, device=dev)[None, :]
           - out_w * 0.5).expand(out_h, out_w)
     dy = (torch.arange(out_h, dtype=torch.float32, device=dev)[:, None]
           - out_h * 0.5).expand(out_h, out_w)
-    s = (side.to(torch.float32) / float(out_w)).double()
+    if rot_deg:
+        rot = torch.deg2rad(torch.tensor(rot_deg, dtype=torch.float32,
+                                         device=dev))
+        cos_r, sin_r = torch.cos(rot), torch.sin(rot)
+        dx, dy = cos_r * dx - sin_r * dy, sin_r * dx + cos_r * dy
+    s = (side / float(out_w)).double()
     # center + d * s rounded once, as the jitted JAX program computes it
     # (XLA contracts the multiply-add into an FMA): the float64 sum of an
     # exact float32 product, rounded to float32
@@ -65,3 +74,17 @@ def nearest_sample(img: torch.Tensor, coords: torch.Tensor,
     yi = torch.round(coords[..., 1]).to(torch.int64)
     out = _fetch(img, yi, xi, fill)
     return out[..., 0] if squeeze else out
+
+
+def crop_resize(img: torch.Tensor, center, scale, out_size,
+                rot_deg: float = 0.0, method: str = "bilinear"):
+    """crop_resize_by_warp_affine (lib/transform/coordinate.py:11-22): the
+    square window of side `scale` at `center`, rotated by `rot_deg`,
+    resampled to `out_size` (an int or (h, w)); img [H, W] or [H, W, C],
+    one image."""
+    if isinstance(out_size, int):
+        out_size = (out_size, out_size)
+    center = torch.as_tensor(center, dtype=torch.float32, device=img.device)
+    coords = crop_affine_coords(center, scale, out_size, rot_deg)
+    sampler = bilinear_sample if method == "bilinear" else nearest_sample
+    return sampler(img, coords)

@@ -1,6 +1,7 @@
 """Point-cloud neighbourhood ops (counterpart of core/pointops/neighbors.py).
 
-Batched over leading dims, [..., N, 3] clouds. The two KNN searches,
+Batched over leading dims, [..., N, 3] clouds. The two KNN searches
+(and random_subsample_pool's),
 nearest_index and min_dists ([B, N, 3] clouds) dispatch to the
 hand-written kernels in ops.pointops (their plain PyTorch versions for CPU
 tensors), through the module attribute so that a caller can swap a
@@ -81,3 +82,48 @@ def neighbor_directions(vertices: torch.Tensor, index: torch.Tensor,
     degenerate = sq < eps * eps
     safe_n = torch.sqrt(torch.where(degenerate, torch.ones_like(sq), sq))
     return torch.where(degenerate, torch.zeros_like(d), d / safe_n)
+
+
+def farthest_point_sampling(points: torch.Tensor, num_samples: int,
+                            start_index: int = 0) -> torch.Tensor:
+    """Deterministic FPS: indices [..., num_samples] (int32) of a
+    maximally spread subset of points [..., n, 3], from `start_index`;
+    ties go to the first index (torch.argmax, as jnp.argmax). One step a
+    sample, as the JAX package's lax.scan."""
+    lead = points.shape[:-2]
+    pts = points.reshape((-1,) + points.shape[-2:])
+    b, n, _ = pts.shape
+    rows = torch.arange(b, device=pts.device)
+    d2 = torch.full((b, n), float("inf"), dtype=pts.dtype, device=pts.device)
+    last = torch.full((b,), start_index, dtype=torch.int64,
+                      device=pts.device)
+    idx = []
+    for _ in range(num_samples):
+        idx.append(last)
+        dist = torch.sum((pts - pts[rows, last][:, None, :]) ** 2, -1)
+        d2 = torch.minimum(d2, dist)
+        last = torch.argmax(d2, dim=-1)
+    return torch.stack(idx, -1).to(torch.int32).reshape(
+        lead + (num_samples,))
+
+
+def random_subsample_pool(generator: torch.Generator | None,
+                          vertices: torch.Tensor, features: torch.Tensor,
+                          pool_num: int, neighbor_num: int = 4,
+                          permutation: torch.Tensor | None = None):
+    """3D-GCN Pool_layer (gcn3d.py:218-242): the max of each point's
+    features over its `neighbor_num` nearest neighbours (KNN on
+    vertices[..., :3]), then `pool_num` points of one random permutation
+    shared by the batch, drawn from `generator` or given as
+    `permutation` [n]. vertices [B, n, d_v], features [B, n, c] ->
+    ([B, pool_num, d_v], [B, pool_num, c])."""
+    n = vertices.shape[-2]
+    idx = knn_indices(vertices[..., :3].contiguous(), neighbor_num,
+                      exclude_self=True)
+    pooled = gather_neighbors_max(features, idx)
+    if permutation is None:
+        permutation = torch.randperm(n, generator=generator,
+                                     device=vertices.device)
+    sample = permutation[:pool_num].to(device=vertices.device,
+                                       dtype=torch.int64)
+    return vertices[..., sample, :], pooled[..., sample, :]

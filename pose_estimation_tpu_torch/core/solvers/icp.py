@@ -6,8 +6,14 @@ refinement the transparent eval runs.
 The correspondences are kernel 4 (ops.pointops.nearest_multi, the
 observed cloud as the targets, the moved model as the sources; its plain
 version for CPU tensors): JAX's argmin(pairwise_sqdist(dst, moved)), the
-same expanded squared distance, ties to the lower index. No gradient is
-taken through the search.
+same expanded squared distance, ties to the lower index, but computed in
+the frame of the observed cloud's centroid. The JAX package searches in
+the camera frame, where |t|^2 + |s|^2 - 2 t.s cancels at 0.6-1.1 m: there
+a rounding of 1e-6 anywhere flips near-tied correspondences and trims
+and moves a refined pose by ~0.01-0.07 mm (the card against the CPU:
+0.07); centred, the same perturbation moves nothing. The fit is the
+same; only the rounding differs. No gradient is taken through the
+search.
 """
 
 from __future__ import annotations
@@ -50,7 +56,13 @@ def icp_refine(src: torch.Tensor, dst: torch.Tensor, r0: torch.Tensor,
     trim_fraction > 0 the worst correspondences of each iteration get
     weight 0. Returns (r, t, the last iteration's weighted mean residual
     [B])."""
-    r, t = r0, t0
+    # in the frame of dst's centroid, where the expanded squared distance
+    # does not cancel: at 0.6-1.1 m from the camera a rounding of 1e-6
+    # elsewhere flips near-tied correspondences and trims and moves the
+    # refined pose by ~0.01 mm; the fit is the same, translated back
+    c = dst.mean(-2)
+    dst = (dst - c[..., None, :]).contiguous()
+    r, t = r0, t0 - c
     res = None
     for _ in range(iters):
         moved = transform_points(src, r, t).contiguous()
@@ -61,7 +73,7 @@ def icp_refine(src: torch.Tensor, dst: torch.Tensor, r0: torch.Tensor,
         r, t = kabsch(corr, dst, weights=w)
         err = torch.linalg.norm(transform_points(corr, r, t) - dst, dim=-1)
         res = (w * err).sum(-1) / torch.clamp(w.sum(-1), min=1.0)
-    return r, t, res
+    return r, t + c, res
 
 
 def trimmed_residuals(src: torch.Tensor, dst: torch.Tensor, poses,
@@ -71,7 +83,9 @@ def trimmed_residuals(src: torch.Tensor, dst: torch.Tensor, poses,
     correspondences; the poses' moved models are the source clouds of one
     nearest_multi launch. The distance is the kernel's with eps = 0:
     sqrt(max(min d, 0))."""
-    moved = [transform_points(src, r, t).contiguous() for r, t in poses]
+    c = dst.mean(-2)                         # as icp_refine, centred
+    dst = (dst - c[..., None, :]).contiguous()
+    moved = [transform_points(src, r, t - c).contiguous() for r, t in poses]
     out = []
     for nn_d, _ in _kops.nearest_multi(dst, moved, eps=0.0):
         w = _trim_weights(nn_d, trim_fraction).to(src.dtype)

@@ -1,16 +1,18 @@
 """Trainer (counterpart of train/trainer.py): epoch loops, eval with the
 on-device pose recovery of serve.EvalStep, best-model tracking, manual LR
-decay, checkpoints, JSONL metrics. The card unless the caller passes
-device="cpu" (no card raises).
+decay, checkpoints, JSONL metrics mirrored into TensorBoard event files
+(log_dir/tb/<name>), and with cfg.train.eval_viz a pred-vs-gt overlay of
+each eval's first batch (log_dir/viz/epoch_XXXX.png and the eval stream's
+"eval/pred_vs_gt" image). The card unless the caller passes device="cpu"
+(no card raises).
 
 Under a process group (parallel.dist) each rank is one shard, as in the
 JAX trainer: disjoint train and eval shards of equal batch counts, the LR
 horizon over the shards, the step's reductions over the global batch
 (train.train_step), the eval tables merged before the summary, so that
 best_dis and the LR decay agree on every rank, logs written by rank 0 and
-checkpoints saved by rank 0 and loaded on every rank or on none. The
-TensorBoard mirror and the eval overlay images (utils/tb, utils/viz) are
-not ported.
+checkpoints saved by rank 0 and loaded on every rank or on none; the
+event files and the overlay are rank 0's too.
 """
 
 from __future__ import annotations
@@ -39,14 +41,20 @@ from pose_estimation_tpu_torch.train.train_step import build_train_step
 
 
 class MetricsLogger:
-    """Appends one JSON record per call to log_dir/<name>.jsonl; with
-    enabled=False (the ranks but 0 of a group) it writes nothing."""
+    """Appends one JSON record per call to log_dir/<name>.jsonl and, with
+    `tb`, mirrors its float entries into log_dir/tb/<name> (utils.tb, the
+    JAX MetricsLogger's event files); with enabled=False (the ranks but 0
+    of a group) it writes nothing."""
 
-    def __init__(self, log_dir: str, name: str = "train",
+    def __init__(self, log_dir: str, name: str = "train", tb: bool = True,
                  enabled: bool = True):
         self.enabled = enabled
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, f"{name}.jsonl")
+        self.tb = None
+        if tb and enabled:
+            from pose_estimation_tpu_torch.utils.tb import EventWriter
+            self.tb = EventWriter(os.path.join(log_dir, "tb", name))
 
     def log(self, step: int, payload: dict, echo: bool = False):
         if not self.enabled:
@@ -58,8 +66,19 @@ class MetricsLogger:
                     for k, v in payload.items()})
         with open(self.path, "a") as f:
             f.write(json.dumps(rec) + "\n")
+        if self.tb is not None:
+            for k, v in rec.items():
+                if k not in ("step", "time") and isinstance(v, float):
+                    self.tb.add_scalar(k, v, rec["step"])
+            self.tb.flush()
         if echo:
             print(json.dumps(rec), flush=True)
+
+    def log_image(self, step: int, tag: str, img):
+        """Mirror an HWC uint8 image into the event file."""
+        if self.tb is not None:
+            self.tb.add_image(tag, np.asarray(img), int(step))
+            self.tb.flush()
 
 
 def _generator(seed: int, stream: int, epoch: int, device="cpu"):
@@ -235,6 +254,8 @@ class Trainer:
                 acc.update(batch["cls"].numpy()[keep],
                            {k: v.float().cpu().numpy()[keep]
                             for k, v in out.items() if v.ndim == 1})
+                if bi == 0 and cfg.train.eval_viz and self.primary:
+                    self.save_overlay(epoch, batch, out)
         finally:
             stream.close()
         summary = acc.all_reduce_across_processes().summary()
@@ -250,6 +271,23 @@ class Trainer:
             self.state.lr_scale = float(np.float32(
                 self.state.lr_scale * cfg.train.lr.decay_rate))
         return summary
+
+    def save_overlay(self, epoch: int, batch: dict, out: dict):
+        """The pred-vs-gt box overlay of the first crops of `batch` (the
+        host batch) at the eval's poses: log_dir/viz/epoch_XXXX.png and the
+        eval stream's image; best-effort, as the JAX trainer's (it needs
+        OpenCV)."""
+        from pose_estimation_tpu_torch.utils.viz import save_eval_grid
+        viz_dir = os.path.join(os.path.dirname(self.log.path), "viz")
+        os.makedirs(viz_dir, exist_ok=True)
+        try:
+            grid = save_eval_grid(
+                os.path.join(viz_dir, f"epoch_{epoch:04d}.png"), batch,
+                out["pred_r"].float().cpu().numpy(),
+                out["pred_t"].float().cpu().numpy())
+            self.eval_log.log_image(epoch, "eval/pred_vs_gt", grid)
+        except Exception as e:  # viz is best-effort (needs cv2)
+            print(f"[trainer] eval viz skipped: {e}")
 
     def fit(self, num_epochs: int | None = None,
             steps_per_epoch: int | None = None, eval_every: int = 1):

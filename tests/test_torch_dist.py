@@ -490,6 +490,16 @@ def test_trainer_on_uneven_shards(two):
         assert "starting fresh" in r["printed"]
 
 
+def test_trainer_logs_and_overlays_on_rank_0_only(two):
+    """Under a group rank 0 alone writes the JSONL, the event files and the
+    eval overlay (as the JAX trainer's MetricsLogger(enabled=primary))."""
+    r0, r1 = two["trainer"]
+    tb = [f.split("/")[:2] for f in r0["logged"] if f.startswith("tb/")]
+    assert sorted(tb) == [["tb", "eval"], ["tb", "train"]]
+    assert "viz/epoch_0000.png" in r0["logged"]
+    assert len(r0["logged"]) == 5 and r1["logged"] == []
+
+
 def _jax_ring(payload):
     mesh = make_mesh()
     with mesh:

@@ -1061,3 +1061,72 @@ def test_nearest_at_eps_zero_and_icp_on_the_card(dev):
     assert torch.equal(out[2].cpu(), cpu[2])
     for a, b in zip(out[:2], cpu[:2]):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+
+
+def test_farthest_point_sampling_on_the_card_equals_the_cpu(dev):
+    g = torch.Generator().manual_seed(5)
+    pts = torch.randn(3, 700, 3, generator=g)
+    from pose_estimation_tpu_torch.core.pointops import (
+        farthest_point_sampling)
+    got = farthest_point_sampling(pts.to(dev), 64, start_index=3)
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), farthest_point_sampling(pts, 64,
+                                                          start_index=3))
+
+
+def test_umeyama_ransac_and_epnp_on_the_card_match_the_cpu(dev):
+    """umeyama_ransac with the same hypotheses: R, t, scale within 1e-5,
+    the inlier mask equal; the full EPnP (both null bases) on 128-point
+    scenes in a box of distinct sides within 1e-4 (the well-posed scenes
+    of tests/test_torch_geometry_rest.py)."""
+    from pose_estimation_tpu_torch.core.geometry import (
+        axis_angle_to_matrix, umeyama_ransac)
+    from pose_estimation_tpu_torch.core.solvers import epnp
+    from pose_estimation_tpu_torch.tools.parity_check import make_scenes
+    rng = np.random.RandomState(5)
+    src = torch.from_numpy((rng.rand(64, 3) - 0.5).astype(np.float32) * 0.2)
+    r = axis_angle_to_matrix(torch.from_numpy(rng.randn(3).astype(
+        np.float32)))
+    dst = 1.3 * src @ r.T + torch.tensor([0.1, -0.05, 0.8])
+    dst[:12] += torch.from_numpy(rng.uniform(-0.3, 0.3, (12, 3)).astype(
+        np.float32))
+    hyp = torch.randint(0, 64, (128, 4), generator=torch.Generator()
+                        .manual_seed(0))
+    got = umeyama_ransac(None, src.to(dev), dst.to(dev), hypotheses=hyp)
+    ref = umeyama_ransac(None, src, dst, hypotheses=hyp)
+    for a, b in zip(got[:3], ref[:3]):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+    assert torch.equal(got[3].cpu(), ref[3])
+
+    scenes = make_scenes(4, 128, 1.0, 0.0, seed=1)
+    box = torch.tensor([0.16, 0.10, 0.05], dtype=torch.float64) / 0.12
+    pw = torch.stack([torch.from_numpy(s["pw"]) * box for s in scenes])
+    r_gt = torch.stack([torch.from_numpy(s["r"]) for s in scenes])
+    t_gt = torch.stack([torch.from_numpy(s["t"]) for s in scenes])
+    k = torch.from_numpy(scenes[0]["k"])
+    pc = pw @ r_gt.transpose(-1, -2) + t_gt[:, None]
+    uv = pc @ k.T
+    uv = uv[..., :2] / uv[..., 2:] + torch.from_numpy(
+        rng.randn(4, 128, 2))
+    args = [x.float() for x in (pw, uv, k.expand(4, 3, 3))]
+    for basis in ("iterative", "eigh"):
+        got = epnp(*(a.to(dev) for a in args), null_basis=basis)
+        ref = epnp(*args, null_basis=basis)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+
+
+def test_parity_check_backends_on_the_card(dev):
+    """parity_check.run_backend on the card and on the CPU with the same
+    draws: the rotation round trips within 1e-5 on both; each row's
+    errors within chip_smoke.py's PARITY_TOL of the CPU's."""
+    import chip_smoke
+    from pose_estimation_tpu_torch.tools import parity_check
+    scenes = parity_check.make_scenes(4, 128, 1.0, 0.25)
+    draws = parity_check.draw(scenes)
+    cpu = parity_check.run_backend(torch.device("cpu"), scenes, draws)
+    card = parity_check.run_backend(dev, scenes, draws)
+    for a, b in zip(card, cpu):
+        assert a["rot_roundtrip"] <= 1e-5 and b["rot_roundtrip"] <= 1e-5
+        for key, tol in chip_smoke.PARITY_TOL.items():
+            assert abs(a[key] - b[key]) <= tol, (key, a[key], b[key])

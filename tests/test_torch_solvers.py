@@ -27,12 +27,14 @@ from pose_estimation_tpu_torch.core.geometry import intrinsics as tintr
 from pose_estimation_tpu_torch.core.geometry import rotations as trot
 from pose_estimation_tpu_torch.core.geometry import umeyama as tume
 from pose_estimation_tpu_torch.core.geometry import warp as twarp
-from pose_estimation_tpu_torch.core.solvers import epnp as tepnp
 from pose_estimation_tpu_torch.core.solvers import lm as tlm
 from pose_estimation_tpu_torch.core.solvers import pnp as tpnp
 from pose_estimation_tpu_torch.metrics import metric as tmetric
 
 jepnp = importlib.import_module("pose_estimation_tpu.core.solvers.epnp")
+# the module: both packages' core/solvers export the function `epnp`,
+# which shadows the submodule's name in the package
+tepnp = importlib.import_module("pose_estimation_tpu_torch.core.solvers.epnp")
 jlm = importlib.import_module("pose_estimation_tpu.core.solvers.lm")
 jpnp = importlib.import_module("pose_estimation_tpu.core.solvers.pnp")
 

@@ -247,14 +247,15 @@ def eval_merge(payload: dict) -> dict:
 def trainer(payload: dict) -> dict:
     """The trainer on the uneven shards of tests/mp_worker.py (15 train
     and 9 test samples, bs 4, log directories of their own per rank):
-    one epoch and one eval, then a second trainer on the same
-    directories, where rank 0 finds a checkpoint and rank 1 none."""
+    one epoch and one eval with the overlay on, then a second trainer on
+    the same directories, where rank 0 finds a checkpoint and rank 1
+    none."""
     from pose_estimation_tpu_torch.configs import schema
     from pose_estimation_tpu_torch.data.synthetic import SyntheticPoseDataset
     from pose_estimation_tpu_torch.parallel import dist
     from pose_estimation_tpu_torch.train.trainer import Trainer
     cfg = schema.override(config(schema, "gn"), **{
-        "module.num_cls": 3, "train.eval_viz": False, "train.ckpt_every": 0,
+        "module.num_cls": 3, "train.eval_viz": True, "train.ckpt_every": 0,
         "train.num_epoch": 1})
     train = SyntheticPoseDataset(num_objects=3, frames_per_object=5,
                                  im_h=240, im_w=320, num_regions=8)
@@ -267,11 +268,15 @@ def trainer(payload: dict) -> dict:
     state = tr.train_epoch(0)
     summary = tr.test_epoch(0)
     files = sorted(f for f in os.listdir(log_dir) if f.endswith(".jsonl"))
+    logged = sorted(os.path.relpath(os.path.join(d, f), log_dir)
+                    for d, _, fs in os.walk(log_dir) for f in fs
+                    if not d.startswith(os.path.join(log_dir, "ckpt")))
     again = Trainer(cfg, train, test, log_dir=log_dir, device="cpu")
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         restored = again.init_state()
     return {"train_steps": state.step, "summary": summary, "files": files,
+            "logged": logged,
             "ckpt_steps": tr.ckpt.steps(), "restored_step": restored.step,
             "printed": printed.getvalue(),
             "lr": [float(tr.tx.schedule(i)) for i in range(6)]}
