@@ -29,6 +29,10 @@ Layout:
   tools/infer     serving CLI (JSONL per frame)
   tools/profile_eval, tools/profile_serve
                   per-component and per-layer times on the card
+  utils           the TensorBoard writer and pose overlays (tb, viz);
+                  profiling: the program's spans (serve, krrn, pnp,
+                  train, optim, op) and its host-sync counter, off by
+                  default
   device          the card unless the caller asks for the CPU
 
 It imports torch and nothing of JAX or of the JAX package; its tests

@@ -20,6 +20,7 @@ from pose_estimation_tpu_torch.core.solvers.epnp import epnp_fast
 from pose_estimation_tpu_torch.core.solvers.lm import (
     refine_pose_lm, reprojection_residuals)
 from pose_estimation_tpu_torch.parallel import dist
+from pose_estimation_tpu_torch.utils.profiling import span
 
 
 def minimal_subsets(generator, mask: torch.Tensor, num: int,
@@ -75,25 +76,26 @@ def pnp_ransac(pw: torch.Tensor, uv: torch.Tensor, k: torch.Tensor,
     if mask is None:
         mask = torch.ones((b, n), dtype=pw.dtype, device=pw.device)
     mask = mask.to(pw.dtype)
-    if subset_ids is None:
-        subset_ids = minimal_subsets(generator, mask, sample_size,
-                                     num_hypotheses)
-    else:
-        subset_ids = dist.rank_rows(subset_ids)
-    h = subset_ids.shape[1]
-    kh = k[:, None].expand(b, h, 3, 3)
-    rs, ts = epnp_fast(_take(pw, subset_ids), _take(uv, subset_ids), kh)
+    with span("pnp.hypotheses"):
+        if subset_ids is None:
+            subset_ids = minimal_subsets(generator, mask, sample_size,
+                                         num_hypotheses)
+        else:
+            subset_ids = dist.rank_rows(subset_ids)
+        h = subset_ids.shape[1]
+        kh = k[:, None].expand(b, h, 3, 3)
+        rs, ts = epnp_fast(_take(pw, subset_ids), _take(uv, subset_ids), kh)
 
-    # score every hypothesis against every point
-    pc = torch.einsum("bhij,bnj->bhni", rs, pw) + ts[:, :, None, :]
-    z = torch.clamp(pc[..., 2], min=1e-8)
-    kk = k[:, None, None]
-    proj_u = pc[..., 0] / z * kk[..., 0, 0] + kk[..., 0, 2]
-    proj_v = pc[..., 1] / z * kk[..., 1, 1] + kk[..., 1, 2]
-    err = torch.sqrt((proj_u - uv[:, None, :, 0]) ** 2
-                     + (proj_v - uv[:, None, :, 1]) ** 2)
-    inl = (err < inlier_px) & (mask[:, None] > 0) & (pc[..., 2] > 0)
-    scores = inl.sum(-1)                                          # [B, H]
+    with span("pnp.score"):                # every hypothesis, every point
+        pc = torch.einsum("bhij,bnj->bhni", rs, pw) + ts[:, :, None, :]
+        z = torch.clamp(pc[..., 2], min=1e-8)
+        kk = k[:, None, None]
+        proj_u = pc[..., 0] / z * kk[..., 0, 0] + kk[..., 0, 2]
+        proj_v = pc[..., 1] / z * kk[..., 1, 1] + kk[..., 1, 2]
+        err = torch.sqrt((proj_u - uv[:, None, :, 0]) ** 2
+                         + (proj_v - uv[:, None, :, 1]) ** 2)
+        inl = (err < inlier_px) & (mask[:, None] > 0) & (pc[..., 2] > 0)
+        scores = inl.sum(-1)                                      # [B, H]
 
     def weights_for(idx):                                         # idx [B]
         if robust_refine:
@@ -107,42 +109,46 @@ def pnp_ransac(pw: torch.Tensor, uv: torch.Tensor, k: torch.Tensor,
         return torch.cat([matrix_to_axis_angle(_pick(rs, idx)),
                           _pick(ts, idx)], -1)
 
-    if refine_top_k <= 1:
-        best = torch.argmax(scores, dim=-1)
-        pose, mse = refine_pose_lm(pose0(best), pw, uv, k, weights_for(best),
-                                   iters=refine_iters)
-    else:
-        # top-k with ties to the lower index (lax.top_k): a stable sort
-        top = torch.sort(scores, dim=-1, descending=True,
-                         stable=True).indices[:, :refine_top_k]
-        p0 = torch.stack([pose0(top[:, j]) for j in range(refine_top_k)], 1)
-        w0 = torch.stack([weights_for(top[:, j])
-                          for j in range(refine_top_k)], 1)
-        ex = lambda t: t[:, None].expand(t.shape[:1] + (refine_top_k,)
-                                         + t.shape[1:])
-        poses, _ = refine_pose_lm(p0, ex(pw), ex(uv), ex(k), w0,
-                                  iters=refine_iters)
-        res = reprojection_residuals(poses, ex(pw), ex(uv), ex(k))
-        res = res.reshape(res.shape[:-1] + (-1, 2))
-        rho = torch.log1p(torch.sum(res * res, -1) / (inlier_px * inlier_px))
-        costs = (mask[:, None] * rho).sum(-1)                     # [B, K]
-        win = torch.argmin(costs, dim=-1)
-        pose = _pick(poses, win)
-        res = reprojection_residuals(pose, pw, uv, k).reshape(b, n, 2)
-        w_win = weights_for(_pick(top, win))
-        mse = (w_win * torch.sum(res * res, -1)).sum(-1) / torch.clamp(
-            w_win.sum(-1), min=1e-12)
+    with span("pnp.refine"):
+        if refine_top_k <= 1:
+            best = torch.argmax(scores, dim=-1)
+            pose, mse = refine_pose_lm(pose0(best), pw, uv, k,
+                                       weights_for(best), iters=refine_iters)
+        else:
+            # top-k with ties to the lower index (lax.top_k): a stable sort
+            top = torch.sort(scores, dim=-1, descending=True,
+                             stable=True).indices[:, :refine_top_k]
+            p0 = torch.stack([pose0(top[:, j])
+                              for j in range(refine_top_k)], 1)
+            w0 = torch.stack([weights_for(top[:, j])
+                              for j in range(refine_top_k)], 1)
+            ex = lambda t: t[:, None].expand(t.shape[:1] + (refine_top_k,)
+                                             + t.shape[1:])
+            poses, _ = refine_pose_lm(p0, ex(pw), ex(uv), ex(k), w0,
+                                      iters=refine_iters)
+            res = reprojection_residuals(poses, ex(pw), ex(uv), ex(k))
+            res = res.reshape(res.shape[:-1] + (-1, 2))
+            rho = torch.log1p(torch.sum(res * res, -1)
+                              / (inlier_px * inlier_px))
+            costs = (mask[:, None] * rho).sum(-1)                 # [B, K]
+            win = torch.argmin(costs, dim=-1)
+            pose = _pick(poses, win)
+            res = reprojection_residuals(pose, pw, uv, k).reshape(b, n, 2)
+            w_win = weights_for(_pick(top, win))
+            mse = (w_win * torch.sum(res * res, -1)).sum(-1) / torch.clamp(
+                w_win.sum(-1), min=1e-12)
 
-    res = reprojection_residuals(pose, pw, uv, k).reshape(b, n, 2)
-    final_inl = (torch.linalg.norm(res, dim=-1) < inlier_px) & (mask > 0)
-    return {
-        "r": axis_angle_to_matrix(pose[:, :3]),
-        "t": pose[:, 3:],
-        "pose6": pose,
-        "inliers": final_inl,
-        "mean_err": mse,
-        "num_inliers": final_inl.sum(-1),
-    }
+    with span("pnp.final"):
+        res = reprojection_residuals(pose, pw, uv, k).reshape(b, n, 2)
+        final_inl = (torch.linalg.norm(res, dim=-1) < inlier_px) & (mask > 0)
+        return {
+            "r": axis_angle_to_matrix(pose[:, :3]),
+            "t": pose[:, 3:],
+            "pose6": pose,
+            "inliers": final_inl,
+            "mean_err": mse,
+            "num_inliers": final_inl.sum(-1),
+        }
 
 
 def _objective_grad(pose6, pw, uv, k, weights):

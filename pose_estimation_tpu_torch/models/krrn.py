@@ -22,6 +22,7 @@ from pose_estimation_tpu_torch.models.layers import (
     Conv, ConvNorm, ConvTransposeNorm, Named, upsample2x)
 from pose_estimation_tpu_torch.models.posenet import (
     PoseNet, rot_mat_y_first, vertical_rot_vectors)
+from pose_estimation_tpu_torch.utils.profiling import span
 
 
 class XYZHead(Named):
@@ -123,30 +124,34 @@ class KRRN(Named):
         num_cls = self.cfg.module.num_cls
         gen = generator if train else None
         mo, ro = self.mask_outc, self.region_outc
-        feat_quarter, feat_half = self.HRNet_0(
-            x.permute(0, 3, 1, 2).to(self.dtype))
-        xyz_map = self.XYZHead_0(feat_quarter).permute(0, 2, 3, 1)
-        nml_map = self.NMLHead_0(feat_half).permute(0, 2, 3, 1)
-        xyz_sel = _select_class(xyz_map[..., mo + ro:], cls, num_cls)
-        nml_sel = safe_normalize(_select_class(nml_map, cls, num_cls))
-        xyz_emb = _gather_pixels(xyz_sel, choose)
-        nml_emb = _gather_pixels(nml_sel, choose)
+        with span("krrn.backbone"):
+            feat_quarter, feat_half = self.HRNet_0(
+                x.permute(0, 3, 1, 2).to(self.dtype))
+        with span("krrn.heads"):
+            xyz_map = self.XYZHead_0(feat_quarter).permute(0, 2, 3, 1)
+            nml_map = self.NMLHead_0(feat_half).permute(0, 2, 3, 1)
+            xyz_sel = _select_class(xyz_map[..., mo + ro:], cls, num_cls)
+            nml_sel = safe_normalize(_select_class(nml_map, cls, num_cls))
+            xyz_emb = _gather_pixels(xyz_sel, choose)
+            nml_emb = _gather_pixels(nml_sel, choose)
         pred_r = pred_t = t_res = None
         if opt_pose:
-            feat = getattr(self, self.fusion_name)(p_emb, xyz_emb, nml_emb,
-                                                   gen)
-            onehot = F.one_hot(cls.long(), num_cls).to(feat.dtype)
-            onehot = onehot[:, None, :].expand(*feat.shape[:2], num_cls)
-            feat = torch.cat([feat, onehot], -1)
-            green, red, t_res = self.PoseNet_0(feat, train, gen)
-            pred_t = torch.mean(p_emb + t_res, dim=1)
-            if green is not None:
-                gv = safe_normalize(green[:, 1:], eps=1e-6)
-                rv = safe_normalize(red[:, 1:], eps=1e-6)
-                cg = torch.sigmoid(green[:, :1])
-                cr = torch.sigmoid(red[:, :1])
-                pred_r = rot_mat_y_first(*vertical_rot_vectors(cr, cg, rv,
-                                                               gv))
+            with span("krrn.fusion"):
+                feat = getattr(self, self.fusion_name)(p_emb, xyz_emb,
+                                                       nml_emb, gen)
+            with span("krrn.pose"):
+                onehot = F.one_hot(cls.long(), num_cls).to(feat.dtype)
+                onehot = onehot[:, None, :].expand(*feat.shape[:2], num_cls)
+                feat = torch.cat([feat, onehot], -1)
+                green, red, t_res = self.PoseNet_0(feat, train, gen)
+                pred_t = torch.mean(p_emb + t_res, dim=1)
+                if green is not None:
+                    gv = safe_normalize(green[:, 1:], eps=1e-6)
+                    rv = safe_normalize(red[:, 1:], eps=1e-6)
+                    cg = torch.sigmoid(green[:, :1])
+                    cr = torch.sigmoid(red[:, :1])
+                    pred_r = rot_mat_y_first(*vertical_rot_vectors(
+                        cr, cg, rv, gv))
         return {
             "xyz": xyz_sel,
             "region": xyz_map[..., mo:mo + ro],

@@ -70,6 +70,7 @@ import torch
 from pose_estimation_tpu_torch.ops import _build
 from pose_estimation_tpu_torch.ops.limits import (
     LINEAR_MAX_ROW_BYTES, SURF_MAX_K, SURF_MAX_STREAMS)
+from pose_estimation_tpu_torch.utils.profiling import spanned
 
 _BF16 = torch.bfloat16
 
@@ -254,6 +255,7 @@ class _SurfaceMulti(torch.autograd.Function):
                                             ctx.needs_input_grad[2:], g))
 
 
+@spanned("op.surface_multi")
 def surface_multi(nds, dirs_list, support_num: int):
     """Multi-stream ConvSurface aggregate -> list of [B, N, O] fp32,
     differentiable in nds and dirs."""
@@ -301,6 +303,7 @@ class _LinearMulti(torch.autograd.Function):
                                             ctx.needs_input_grad[2:], g))
 
 
+@spanned("op.linear_multi")
 def linear_multi(nds, dirs_list, xs, ws, bs, idx, support_num: int):
     """Multi-stream narrow ConvLayer aggregate sharing one gather ->
     list of [B, N, O] fp32, differentiable in nds, dirs, xs, ws and bs."""
@@ -428,6 +431,7 @@ class _Aggregate(torch.autograd.Function):
                                       ctx.needs_input_grad[1:], g))
 
 
+@spanned("op.aggregate")
 def aggregate(nd, dirs, feats, idx, support_num: int) -> torch.Tensor:
     """Per-stream wide-table aggregate -> [B, N, O] fp32, differentiable
     in nd, dirs and feats: nd [B, N, K, D] (D = 3 or 9), dirs [D, S*O],

@@ -34,6 +34,7 @@ import torch
 
 from pose_estimation_tpu_torch.ops import _build
 from pose_estimation_tpu_torch.ops.limits import KNN_MAX_KK
+from pose_estimation_tpu_torch.utils.profiling import spanned
 
 
 def sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -60,6 +61,7 @@ def knn_plain(queries: torch.Tensor, keys: torch.Tensor, k: int,
     return idx.to(torch.int32)
 
 
+@spanned("op.knn")
 def knn(queries: torch.Tensor, keys: torch.Tensor, k: int,
         exclude_self: bool = False) -> torch.Tensor:
     """KNN indices [B, m, k] int32 of `keys` for each query."""
@@ -143,6 +145,7 @@ def nearest_multi_plain(target: torch.Tensor, sources, eps: float = 1e-8):
 _MAX_CLOUDS = 4
 
 
+@spanned("op.nearest_multi")
 def nearest_multi(target: torch.Tensor, sources, eps: float = 1e-8):
     """Distance to, and index of, the nearest point of each source cloud
     for every target, all clouds in one launch: a list of ([B, n] fp32,

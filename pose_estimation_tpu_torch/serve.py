@@ -18,6 +18,7 @@ from pose_estimation_tpu_torch.data.pipeline import denormalize_xyz
 from pose_estimation_tpu_torch.metrics.metric import pose_accuracy
 from pose_estimation_tpu_torch.models.gcn3d import ConvLayer
 from pose_estimation_tpu_torch.ops import check_config
+from pose_estimation_tpu_torch.utils.profiling import spanned
 
 
 def region_base_at_choose(out: dict, batch: dict, soft: bool) -> torch.Tensor:
@@ -57,6 +58,7 @@ class InferStep:
                                        robust_refine, refine_top_k)
 
     @torch.inference_mode()
+    @spanned("serve.forward")
     def forward(self, batch: dict):
         out = self.model(batch["img"], batch["cloud"], batch["choose"],
                          batch["cls"], opt_pose=True)
@@ -67,6 +69,7 @@ class InferStep:
         return xyz_emb, out["pred_t"]
 
     @torch.inference_mode()
+    @spanned("serve.solve")
     def solve(self, xyz_emb, pred_t, batch: dict, generator=None,
               subset_ids=None):
         n = batch["choose"].shape[1]
@@ -85,6 +88,7 @@ class InferStep:
                 "num_inliers": pnp["num_inliers"],
                 "mean_err": pnp["mean_err"]}
 
+    @spanned("serve.request")
     def __call__(self, batch: dict, generator=None, subset_ids=None):
         xyz_emb, pred_t = self.forward(batch)
         return self.solve(xyz_emb, pred_t, batch, generator, subset_ids)

@@ -2,11 +2,12 @@
 
 Runs the shipped schema.Config() KRRN (bf16 activations, seeded random
 weights) through serve.build_infer_step on a synthetic batch and reports:
-  - per-layer stream time (CUDA events before and after HRNet_0,
-    XYZHead_0, NMLHead_0, FusionNetLite_0, PoseNet_0, the pose stage and
-    the ADD(-S) metric; a span includes the device waiting on the host),
-    medians over --iters;
-  - host wall time per stage (synchronised);
+  - the program's spans (utils/profiling.py) over --iters requests, each
+    span's calls, host ms, stream ms (CUDA events; a span includes the
+    device waiting on the host), self host ms and host syncs per
+    request: serve.* (request, forward, solve), krrn.* (backbone, heads,
+    fusion, pose), pnp.* (hypotheses, score, refine, final) and op.*
+    (the five kernel entry points);
   - a torch.profiler window: kernel time by name and the device's busy
     share of the window (idle share = 1 - busy).
 Needs a CUDA card; writes the report as JSON to --out as well.
@@ -19,11 +20,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import time
 
-LAYERS = ("HRNet_0", "XYZHead_0", "NMLHead_0", "FusionNetLite_0",
-          "PoseNet_0")
+SPANS = ("serve", "krrn", "pnp", "op")
 
 
 def _device_us(evt) -> float:
@@ -48,9 +47,9 @@ def main(argv=None):
     from pose_estimation_tpu_torch.configs import schema
     from pose_estimation_tpu_torch.data.synthetic import SyntheticPoseDataset
     from pose_estimation_tpu_torch.data.batching import make_batch
-    from pose_estimation_tpu_torch.metrics.metric import pose_accuracy
     from pose_estimation_tpu_torch.models.krrn import KRRN
     from pose_estimation_tpu_torch.serve import build_infer_step
+    from pose_estimation_tpu_torch.utils import profiling
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -68,71 +67,22 @@ def main(argv=None):
     step = build_infer_step(model, cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    spans = {name: [] for name in LAYERS + ("pose", "metric")}
-    open_ev = {}
-
-    def pre(name):
-        def hook(mod, inp):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            open_ev[name] = ev
-        return hook
-
-    def post(name):
-        def hook(mod, inp, out):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            spans[name].append((open_ev.pop(name), ev))
-        return hook
-
-    handles = []
-    for name in LAYERS:
-        m = getattr(model, name)
-        handles.append(m.register_forward_pre_hook(pre(name)))
-        handles.append(m.register_forward_hook(post(name)))
-
-    def run_once(record):
-        xyz_emb, pred_t = step.forward(batch)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        c = torch.cuda.Event(enable_timing=True)
-        a.record()
-        out = step.solve(xyz_emb, pred_t, batch, generator=gen)
-        b.record()
-        pose_accuracy(out["pred_r"], pred_t.float(), batch["target_r"],
-                      batch["target_t"], batch["model_points"],
-                      batch["sym_mask"], batch["diameter"])
-        c.record()
-        if record:
-            spans["pose"].append((a, b))
-            spans["metric"].append((b, c))
-
     for _ in range(3):
-        run_once(False)
-    for v in spans.values():
-        v.clear()
-    host = {"forward": [], "pose": [], "total": []}
+        step(batch, generator=gen)
+    profiling.enable(True)
     for _ in range(args.iters):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        xyz_emb, pred_t = step.forward(batch)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        step.solve(xyz_emb, pred_t, batch, generator=gen)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        host["forward"].append((t1 - t0) * 1e3)
-        host["pose"].append((t2 - t1) * 1e3)
-        host["total"].append((t2 - t0) * 1e3)
-    for v in spans.values():
-        v.clear()
-    for _ in range(args.iters):
-        run_once(True)
-    torch.cuda.synchronize()
-    layer_ms = {k: statistics.median(a.elapsed_time(b) for a, b in v)
-                for k, v in spans.items() if v}
-    for h in handles:
-        h.remove()
+        step(batch, generator=gen)
+    profiling.enable(False)
+    reqs = args.iters
+    spans = {name: {"calls": r["calls"] / reqs,
+                    "host_ms": r["host_ms"] / reqs,
+                    "stream_ms": r["stream_ms"] / reqs,
+                    "self_host_ms": r["self_host_ms"] / reqs,
+                    "host_syncs": r["counters_inclusive"].get(
+                        "host_syncs", 0) / reqs}
+             for name, r in sorted(profiling.report()["spans"].items())
+             if name.split(".")[0] in SPANS}
+    profiling.reset()
 
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -140,7 +90,7 @@ def main(argv=None):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(3):
-            run_once(False)
+            step(batch, generator=gen)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     # device-side entries only (kernels, memcpy/memset): CPU ops also carry
@@ -155,8 +105,8 @@ def main(argv=None):
     report = {
         "device": torch.cuda.get_device_name(0),
         "batch_size": bs,
-        "host_ms_median": {k: statistics.median(v) for k, v in host.items()},
-        "stream_ms_median_by_layer": layer_ms,
+        "iters": reqs,
+        "spans_per_request": spans,
         "profiler_window_ms_per_iter": window_ms / 3,
         "device_busy_ms_per_iter": busy_ms / 3,
         "device_idle_share": 1.0 - busy_ms / window_ms,

@@ -18,6 +18,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from pose_estimation_tpu_torch.utils.profiling import span
+
 
 def _params(model: nn.Module) -> dict:
     return {k: p.detach() for k, p in model.named_parameters()}
@@ -66,10 +68,12 @@ class TrainState:
     @torch.no_grad()
     def apply_gradients(self, tx, grads: dict) -> "TrainState":
         params = self.params
-        updates, self.opt_state = tx.update(grads, self.opt_state, params,
-                                            lr_scale=self.lr_scale)
-        for k, p in params.items():
-            p.add_(updates[k])
+        with span("optim.update"):
+            updates, self.opt_state = tx.update(
+                grads, self.opt_state, params, lr_scale=self.lr_scale)
+        with span("state.apply"):
+            for k, p in params.items():
+                p.add_(updates[k])
         self.step += 1
         return self
 

@@ -35,6 +35,7 @@ from pose_estimation_tpu_torch.losses.pose_loss import krrn_loss, pose_loss
 from pose_estimation_tpu_torch.parallel import dist
 from pose_estimation_tpu_torch.serve import region_base_at_choose
 from pose_estimation_tpu_torch.train.state import TrainState
+from pose_estimation_tpu_torch.utils.profiling import span, spanned
 
 
 def loss_weights_dict(cfg: Config) -> dict:
@@ -113,6 +114,7 @@ class TrainStep:
         self.refine_loss = (build_refine_loss(cfg) if cfg.train.refine
                             else None)
 
+    @spanned("train.losses")
     def losses(self, batch: dict, opt_pose: bool = True, train: bool = True,
                generator=None, subset_ids=None) -> dict:
         """The loss terms; with train.refine and opt_pose also loss_refine,
@@ -131,6 +133,7 @@ class TrainStep:
             losses["loss"] = losses["loss"] + w * losses["loss_refine"]
         return losses
 
+    @spanned("train.gradients")
     def gradients(self, losses: dict) -> dict:
         """Gradient of the total loss for every parameter; zeros for the
         ones the loss does not reach (the pose branch without opt_pose),
@@ -142,12 +145,13 @@ class TrainStep:
                                     materialize_grads=True)
         return dict(zip(names, dist.all_reduce_mean(grads)))
 
+    @spanned("train.apply")
     def apply(self, state: TrainState, losses: dict, grads: dict) -> dict:
         """The guard and the update from `grads` (already averaged over
         the group); the metrics are the loss terms averaged over the
         group, the guard's decision and the gradient norm."""
         metrics = dist.mean_dict({k: v.detach() for k, v in losses.items()})
-        with torch.no_grad():
+        with torch.no_grad(), span("train.guard"):
             gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                    for g in grads.values()))
             finite = (torch.isfinite(metrics[self.total])
@@ -159,6 +163,7 @@ class TrainStep:
         metrics["grad_norm"] = gnorm
         return metrics
 
+    @spanned("train.step")
     def __call__(self, state: TrainState, batch: dict, opt_pose: bool = True,
                  train: bool = True) -> dict:
         losses = self.losses(batch, opt_pose, train, state.generator)

@@ -57,6 +57,7 @@ from pose_estimation_tpu_torch.parallel import dist
 from pose_estimation_tpu_torch.train.state import TrainState
 from pose_estimation_tpu_torch.train.train_step import TrainStep
 from pose_estimation_tpu_torch.train.trainer import Trainer, _generator
+from pose_estimation_tpu_torch.utils.profiling import span, spanned
 
 # cfg.module.transparent_model -> the model family
 FAMILIES = {"trpes": TRPESNet, "posenet": TransparentPoseNet}
@@ -158,11 +159,15 @@ class TransparentTrainStep(TrainStep):
             return draw_posenet(generator, b, h, w, self.model.num_points)
         return draw_choose(generator, h * w, self.model.num_points), None
 
+    @spanned("train.losses")
     def losses(self, batch: dict, choose: torch.Tensor,
                masks: list | None = None) -> dict:
-        pred = apply_transparent_model(self.model, batch, choose, masks)
-        return transparent_loss(pred, batch, self.weights)
+        with span("transparent.forward"):
+            pred = apply_transparent_model(self.model, batch, choose, masks)
+        with span("transparent.loss"):
+            return transparent_loss(pred, batch, self.weights)
 
+    @spanned("train.step")
     def __call__(self, state: TrainState, batch: dict) -> dict:
         losses = self.losses(batch, *self.draws(state.generator, batch))
         return self.apply(state, losses, self.gradients(losses))
