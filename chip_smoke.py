@@ -24,7 +24,10 @@ Phases (each raises on failure, the script then exits non-zero):
      computes the same function, its time; KNN's indices must equal the
      plain version's; then the device time of each CUDA kernel of kernels
      1-5 at these shapes (torch.profiler) beside the wrappers' event
-     times;
+     times; the bilinear resize kernel at the heads' 64 -> 128 and a fuse
+     layer's 16 -> 32 (bf16, 256 frames) bit for bit against
+     F.interpolate, its wrapper's and its own device time, the bound,
+     F.interpolate's time and ATen's grid and block;
   4. the pose stage fed ground-truth normalised coordinates of a synthetic
      batch: mean rotation error < 1 deg and ADD@0.1d >= 0.9;
   5. the shipped schema.Config() KRRN (full HRNet, 13 classes, 1024
@@ -32,8 +35,10 @@ Phases (each raises on failure, the script then exits non-zero):
      serve.build_infer_step on a synthetic bs=32 batch: finite outputs,
      launches per forward exactly 2 (linear aggregate), 1 (surface
      aggregate), 8 (KNN), 1 (nearest source: the two up-sampling maps in
-     one call), 0 (wide-table aggregate), the kernel path against the
-     plain path on the same weights and batch, stage times and frames/s;
+     one call), 0 (wide-table aggregate), 36 (bilinear resize: phases
+     7, 9 and 10 hold it too; elsewhere it is printed), the kernel path
+     against the plain path on the same weights and batch, stage times
+     and frames/s;
   6. the serving CLI (tools/infer.py) on 64 synthetic frames at batch 32,
      which must write 64 JSONL records;
   7. training at full width (schema.Config(), bf16 activations, bs=8,
@@ -215,6 +220,8 @@ KERNELS = {
                   "pose_estimation_tpu/ops/pallas_pointops.py:45"),
     "aggregate": ("pose_estimation_tpu_torch/csrc/gcn.cu",
                   "pose_estimation_tpu/ops/pallas_gcn.py:588"),
+    "resize_bilinear": ("pose_estimation_tpu_torch/csrc/resize.cu",
+                        "none: jax.image.resize, XLA"),
 }
 
 # launches per serving forward / train step on each path
@@ -224,6 +231,10 @@ LITE_TRAIN = dict(LITE_SERVE, min_dists=2)
 FULL_SERVE = dict(LITE_SERVE, linear_multi=3)
 FULL_S2_SERVE = dict(FULL_SERVE, aggregate=1)
 FULL_S2_TRAIN = dict(FULL_S2_SERVE, min_dists=2)
+# resizes a forward of the shipped HRNet and heads: 1 + 12 + 18 in the fuse
+# layers, 3 for the concat, 2 in the heads (their backward launches none);
+# held where the path runs the shipped HRNet, printed elsewhere
+SHIPPED_RESIZES = {"resize_bilinear": 36}
 
 # H100 SXM peaks: HBM bytes/s; fp32 on the CUDA cores and bf16 products on
 # the tensor cores (NVIDIA's data sheet), packed bf16x2 arithmetic on the
@@ -285,37 +296,47 @@ def plain_kernels():
     """Route the serving path through the kernels' plain PyTorch versions
     for a reference run on the card (this script's comparison only; the
     package itself has no such switch)."""
-    from pose_estimation_tpu_torch.ops import gcn, pointops
+    from pose_estimation_tpu_torch.ops import gcn, pointops, resize
     saved = (gcn.linear_multi, gcn.surface_multi, gcn.aggregate,
-             pointops.knn, pointops.nearest_multi)
+             pointops.knn, pointops.nearest_multi, resize.resize_bilinear)
     gcn.linear_multi = gcn.linear_multi_plain
     gcn.surface_multi = gcn.surface_multi_plain
     gcn.aggregate = gcn.aggregate_plain
     pointops.knn = pointops.knn_plain
     pointops.nearest_multi = pointops.nearest_multi_plain
+    resize.resize_bilinear = resize.resize_bilinear_plain
     try:
         yield
     finally:
         (gcn.linear_multi, gcn.surface_multi, gcn.aggregate, pointops.knn,
-         pointops.nearest_multi) = saved
+         pointops.nearest_multi, resize.resize_bilinear) = saved
 
 
 def reset_counts():
-    from pose_estimation_tpu_torch.ops import gcn, pointops
+    from pose_estimation_tpu_torch.ops import gcn, pointops, resize
     gcn.linear_multi.launches = 0
     gcn.surface_multi.launches = 0
     gcn.aggregate.launches = 0
     pointops.knn.launches = 0
     pointops.nearest_multi.launches = 0
+    resize.resize_bilinear.launches = 0
 
 
 def read_counts():
-    from pose_estimation_tpu_torch.ops import gcn, pointops
+    from pose_estimation_tpu_torch.ops import gcn, pointops, resize
     return {"linear_multi": gcn.linear_multi.launches,
             "surface_multi": gcn.surface_multi.launches,
             "knn": pointops.knn.launches,
             "min_dists": pointops.nearest_multi.launches,
-            "aggregate": gcn.aggregate.launches}
+            "aggregate": gcn.aggregate.launches,
+            "resize_bilinear": resize.resize_bilinear.launches}
+
+
+def launches_match(counts, want):
+    """Each op that `want` names launched as often as it says; an op it
+    leaves out (the resize, on a path whose HRNet is not the shipped one)
+    is printed, not held."""
+    return all(counts.get(k) == v for k, v in want.items())
 
 
 # ---------------------------------------------------------------------------
@@ -794,6 +815,72 @@ def check_aggregate(dev, g):
                           "backward 1e-3 * max(1, max|ref|)")
 
 
+# (label, input shape, output side) of the resize check: the heads'
+# upsample2x and a fuse layer's 16 -> 32, at 256 frames
+RESIZE_SHAPES = (("heads 64 -> 128", (256, 128, 64, 64), 128),
+                 ("fuse 16 -> 32", (256, 96, 16, 16), 32))
+
+
+def check_resize(dev, g, reps=10):
+    """The bilinear resize kernel at RESIZE_SHAPES in bf16: bit for bit
+    against its plain version (F.interpolate), the wrapper's time and its
+    own kernel's device time (torch.profiler), the plain version's, the
+    bound (bytes) and F.interpolate's time as the library's (the plain
+    version is that call); ATen's grid and block from the profiler's
+    trace. Returns the sums over the shapes and each shape's row."""
+    import tempfile
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from pose_estimation_tpu_torch.ops import resize
+    rows = {}
+    for label, shape, side in RESIZE_SHAPES:
+        x = (torch.randn(shape, generator=g, device=dev) * 3).bfloat16()
+        got = resize.resize_bilinear(x, side, side)
+        ref = resize.resize_bilinear_plain(x, side, side)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"resize {label}: not bit for bit, max |err| "
+                                 f"{(got.float() - ref.float()).abs().max()}")
+        library = lambda: F.interpolate(x, size=(side, side), mode="bilinear",
+                                        align_corners=False)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                resize.resize_bilinear(x, side, side)
+            library()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(f"{tmp}/trace.json")
+            events = json.loads(Path(f"{tmp}/trace.json").read_text())
+        kernels = [e for e in events["traceEvents"]
+                   if e.get("cat") == "kernel"]
+        own = [e["dur"] for e in kernels if "resize_kernel" in e["name"]]
+        aten = [e for e in kernels if "upsample_bilinear2d" in e["name"]]
+        if len(own) != reps or len(aten) != 1:
+            raise AssertionError(f"resize {label}: {len(own)} kernel events "
+                                 f"of {reps}, {len(aten)} of ATen's")
+        b_ms, b_by = bound(nbytes(x, got), {})
+        row = {"ms": cuda_ms(lambda: resize.resize_bilinear(x, side, side)),
+               "device_ms": sorted(own)[reps // 2] / 1e3,
+               "plain_ms": cuda_ms(lambda: resize.resize_bilinear_plain(
+                   x, side, side), reps=5),
+               "library_ms": cuda_ms(library, reps=5),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "aten_grid": aten[0]["args"].get("grid"),
+               "aten_block": aten[0]["args"].get("block")}
+        log(f"  resize {label} {tuple(shape)} bf16: bit for bit; kernel "
+            f"{row['ms']:.4f} ms (device {row['device_ms']:.4f}), plain "
+            f"{row['plain_ms']:.4f} ms, F.interpolate {row['library_ms']:.4f}"
+            f" ms (grid {row['aten_grid']}, block {row['aten_block']}), "
+            f"bound {b_ms:.4f} ms ({b_ms / row['device_ms']:.1%} of it on "
+            f"the device)")
+        rows[label] = row
+    total = {k: sum(r[k] for r in rows.values())
+             for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                       "bound_ms")}
+    return dict(total, max_abs_err=0.0, bound_by="bytes", shapes=rows,
+                tolerance="bit for bit")
+
+
 # ---------------------------------------------------------------------------
 # Phases 4-6
 # ---------------------------------------------------------------------------
@@ -835,7 +922,8 @@ def check_solver_on_gt(cfg, batch, dev):
         raise AssertionError(f"solver on gt: rot {rot} deg, ADD {add}")
 
 
-def serve_full_width(cfg, batch, dev, variant="lite", want=LITE_SERVE,
+def serve_full_width(cfg, batch, dev, variant="lite",
+                     want=dict(LITE_SERVE, **SHIPPED_RESIZES),
                      timing=True, model=None):
     """The `variant` KRRN of `cfg` (bf16, seeded random weights), or
     `model`, through serve.build_infer_step: launch counts of one step
@@ -863,7 +951,7 @@ def serve_full_width(cfg, batch, dev, variant="lite", want=LITE_SERVE,
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"  launches in one serving step: {counts}")
-    if counts != want:
+    if not launches_match(counts, want):
         raise AssertionError(f"launch counts {counts} != {want}")
     for k, v in out.items():
         if not torch.isfinite(v.float()).all():
@@ -999,7 +1087,7 @@ def _counted_step(state, step, batch, want):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"  launches in one train step: {counts}")
-    if counts != want:
+    if not launches_match(counts, want):
         raise AssertionError(f"launch counts {counts} != {want}")
     return counts
 
@@ -1009,7 +1097,8 @@ def train_full_width(cfg, dev):
     import torch
     state, step, batch = _train_setup(cfg, dev)
     _step_vs_plain(state, step, batch)
-    counts = _counted_step(state, step, batch, LITE_TRAIN)
+    counts = _counted_step(state, step, batch,
+                           dict(LITE_TRAIN, **SHIPPED_RESIZES))
 
     torch.cuda.reset_peak_memory_stats()
     losses, skipped, times, split = [], 0.0, [], []
@@ -1062,12 +1151,13 @@ def full_fusion_s2(cfg, batch, dev):
     from pose_estimation_tpu_torch.configs import schema
     cfg = schema.override(cfg, **{"module.gcn3d": schema.Gcn3dConfig(
         neighbor_num=cfg.module.gcn3d.neighbor_num, support_num=2)})
-    serve_counts = serve_full_width(cfg, batch, dev, "full", FULL_S2_SERVE,
+    serve_counts = serve_full_width(cfg, batch, dev, "full",
+                                    dict(FULL_S2_SERVE, **SHIPPED_RESIZES),
                                     timing=False)
     state, step, train_batch = _train_setup(cfg, dev, "full")
     _step_vs_plain(state, step, train_batch)
-    return serve_counts, _counted_step(state, step, train_batch,
-                                       FULL_S2_TRAIN)
+    return serve_counts, _counted_step(
+        state, step, train_batch, dict(FULL_S2_TRAIN, **SHIPPED_RESIZES))
 
 
 PROFILE_COMPONENTS = 14
@@ -1370,7 +1460,7 @@ def _check_counts(what, counts, times):
     want = {k: sum(n * c[k] for n, c in times.values()) for k in LITE_SERVE}
     formula = " + ".join(f"{n} {p} x {c}" for p, (n, c) in times.items())
     log(f"  launches over {what}: {counts}; expected {formula} = {want}")
-    if counts != want:
+    if not launches_match(counts, want):
         raise AssertionError(f"{what}: launch counts {counts} != {want}")
 
 
@@ -1708,7 +1798,7 @@ def train_options_full_width(cfg, serve_batch, dev):
         f"(tol {ORTHO_TOL:.3e}), det in [{det.min().item():.4f}, "
         f"{det.max().item():.4f}]; launches {rot_counts}")
     if not (r.shape == (BS, 3, 3) and torch.isfinite(r).all()
-            and ortho <= ORTHO_TOL and rot_counts == LITE_SERVE):
+            and ortho <= ORTHO_TOL and launches_match(rot_counts, LITE_SERVE)):
         raise AssertionError(f"pred_r: ortho {ortho}, counts {rot_counts}")
     return counts, serve_counts, rot_counts
 
@@ -2113,7 +2203,7 @@ def multi_gpu_one_card(cfg, dev):
         f"all-reduce ({n_grads} tensors, {mib:.1f} MiB in one buffer: "
         f"flatten, all_reduce, divide, copy back) {reduce_ms:.3f} ms, "
         f"NCCL's all_reduce of the buffer alone {raw_ms:.3f} ms")
-    if any(c != LITE_TRAIN for c in counts):
+    if not all(launches_match(c, LITE_TRAIN) for c in counts):
         raise AssertionError(f"launches per trainer step {counts}")
     if n[0] != STEP_COLLECTIVES:
         raise AssertionError(f"{n[0]} collectives a step")
@@ -2203,7 +2293,8 @@ def multi_gpu_one_card(cfg, dev):
             raise AssertionError(f"{variant}: {r0['collectives']} "
                                  "collectives a step")
         want_l = OPTIONS_TRAIN if "refine" in variant else LITE_TRAIN
-        if any(r[variant]["launches"] != want_l for r in ranks):
+        if not all(launches_match(r[variant]["launches"], want_l)
+                   for r in ranks):
             raise AssertionError(f"{variant}: launches "
                                  f"{[r[variant]['launches'] for r in ranks]}")
         paths[f"train_2_ranks_{variant}"] = r0["launches"]
@@ -2420,7 +2511,7 @@ def _counted_transparent_step(state, step, batch, want):
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"  launches in one train step: {counts}")
-    if counts != want:
+    if not launches_match(counts, want):
         raise AssertionError(f"transparent step launches {counts}")
     return counts
 
@@ -2493,7 +2584,7 @@ def _transparent_eval(model, batch, refine, want, reps=5):
         + f"; kernel vs plain max rel |err| {errs}, accept flags equal "
         f"{flags}; {ms:.2f} ms = {bs / ms * 1e3:.1f} frames/s")
     finite = all(torch.isfinite(v.float()).all() for v in out.values())
-    if not (finite and counts == want and flags
+    if not (finite and launches_match(counts, want) and flags
             and all(e <= 1e-5 for e in errs.values())):
         raise AssertionError(f"transparent eval (ICP {refine}): finite "
                              f"{finite}, launches {counts}, {errs}, {flags}")
@@ -2617,7 +2708,8 @@ def transparent_group_of_one(cfg, ds, dev, steps=2):
         f"{[m['all_loss'] for m, _ in ref]}); launches a step "
         f"{got[0][1]}")
     if not (first == want and d_norm <= MGPU_FIRST_NORM_TOL
-            and all(c == TRANSPARENT_TRAIN for _, c in ref + got)):
+            and all(launches_match(c, TRANSPARENT_TRAIN)
+                    for _, c in ref + got)):
         raise AssertionError("transparent trainer: group of one vs no group")
     return got[0][1]
 
@@ -3025,7 +3117,8 @@ def main(argv=None) -> int:
                "surface_multi": check_surface(dev, g),
                "knn": check_knn(dev, g),
                "min_dists": check_min_dists(dev, g),
-               "aggregate": check_aggregate(dev, g)}
+               "aggregate": check_aggregate(dev, g),
+               "resize_bilinear": check_resize(dev, g)}
     split = kernel_split(dev)
     for name, _ in AGG_SHAPES:
         row = split[f"aggregate {name}"]
@@ -3054,8 +3147,8 @@ def main(argv=None) -> int:
 
     log("[9] full-fusion KRRN (schema.Config(), fusion_variant='full', "
         "bf16) through serve.build_infer_step")
-    paths["serve_full"] = serve_full_width(cfg, batch, dev, "full",
-                                           FULL_SERVE)
+    paths["serve_full"] = serve_full_width(
+        cfg, batch, dev, "full", dict(FULL_SERVE, **SHIPPED_RESIZES))
 
     log("[10] full-fusion KRRN at S=2 (wide fm_4): one serving forward, "
         "one train step (bs=8)")
@@ -3121,7 +3214,8 @@ def main(argv=None) -> int:
                         "library_ms": r["library_ms"],
                         **{k: r[k] for k in ("device_ms", "profiler_shape",
                                              "serving_maps",
-                                             "transparent_loss", "posenet")
+                                             "transparent_loss", "posenet",
+                                             "shapes")
                            if k in r}})
     log(f"chip_smoke: all 17 phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

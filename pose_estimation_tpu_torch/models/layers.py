@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pose_estimation_tpu_torch.ops import resize
 from pose_estimation_tpu_torch.parallel import dist
 
 
@@ -254,14 +255,14 @@ def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     centres, the same two source pixels and weights, and at the border
     jax's renormalised triangle kernel and torch's clamped source
     coordinate pick the same edge pixel; the two round the weights apart
-    (tests/test_torch_pspnet.py holds them within 1e-5)."""
+    (tests/test_torch_pspnet.py holds them within 1e-5). The op is
+    ops.resize's: F.interpolate on the CPU, the CUDA kernel on the card."""
     if h < x.shape[2] or w < x.shape[3]:
         raise ValueError("resize_bilinear: down-sampling differs from "
                          "jax.image.resize (antialiasing); not supported")
     if (h, w) == tuple(x.shape[2:]):
         return x
-    return F.interpolate(x, size=(h, w), mode="bilinear",
-                         align_corners=False)
+    return resize.resize_bilinear(x, h, w)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@ plain C interface; ctypes loads it. The library goes to
 <checkout>/build/kernels/<hash of the sources and flags>/, so an edit to a
 source triggers a rebuild and a stale build is never loaded. Nothing is
 built when this module is imported: only `library()` builds, and only the
-wrappers in ops.pointops / ops.gcn call it, for CUDA tensors.
+wrappers in ops.pointops / ops.gcn / ops.resize call it, for CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _P],
     "pose_gcn_aggregate": [_P, _P, _P, _I, _P, _L, _L, _P, _I, _I, _I, _I,
                            _I, _I, _I, _P],
+    "pose_resize_bilinear": [_P, _P, _L] + [_I] * 9 + [_P],
 }
 
 

@@ -7,7 +7,7 @@ weights) through serve.build_infer_step on a synthetic batch and reports:
     device waiting on the host), self host ms and host syncs per
     request: serve.* (request, forward, solve), krrn.* (backbone, heads,
     fusion, pose), pnp.* (hypotheses, score, refine, final) and op.*
-    (the five kernel entry points);
+    (the six kernel entry points);
   - a torch.profiler window: kernel time by name and the device's busy
     share of the window (idle share = 1 - busy).
 Needs a CUDA card; writes the report as JSON to --out as well.

@@ -20,7 +20,7 @@ import torch
 from pose_estimation_tpu_torch.configs import schema
 from pose_estimation_tpu_torch.core.mathsafe import safe_normalize
 from pose_estimation_tpu_torch.models.krrn import KRRN
-from pose_estimation_tpu_torch.ops import _build, gcn, pointops
+from pose_estimation_tpu_torch.ops import _build, gcn, pointops, resize
 
 pytestmark = pytest.mark.gpu
 
@@ -1130,3 +1130,120 @@ def test_parity_check_backends_on_the_card(dev):
         assert a["rot_roundtrip"] <= 1e-5 and b["rot_roundtrip"] <= 1e-5
         for key, tol in chip_smoke.PARITY_TOL.items():
             assert abs(a[key] - b[key]) <= tol, (key, a[key], b[key])
+
+
+# (channels, input side, output side) of every square resize of the main
+# paths: the shipped HRNet's fuse layers and concat (96 to 256 channels),
+# the KRRN heads' 64 -> 128, the UNet's 2x at 256-px crops, PSPNet's
+# pyramid priors 3 -> 32 and 6 -> 32
+RESIZE_SQUARES = [(96, 16, 32), (96, 8, 32), (96, 8, 16), (96, 4, 32),
+                  (96, 4, 16), (128, 4, 8), (128, 8, 32), (256, 4, 32),
+                  (128, 64, 128), (256, 16, 32), (128, 32, 64),
+                  (64, 128, 256), (512, 3, 32), (512, 6, 32)]
+# (planes, (h, w) in, (h, w) out): ragged widths, runs that cross rows and
+# planes, a short last chunk, an unchanged height
+RESIZE_RAGGED = [(6, (5, 7), (13, 21)), (3, (3, 3), (9, 37)),
+                 (3, (2, 5), (3, 11)), (4, (4, 6), (16, 24)),
+                 (5, (7, 9), (7, 30)), (1, (1, 1), (1, 3))]
+
+
+def _resize_input(dev, shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev) * 3
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,hi,ho", RESIZE_SQUARES)
+def test_resize_equals_interpolate_bit_for_bit(dev, dt, c, hi, ho):
+    """The kernel against F.interpolate (ATen's own kernel) at every
+    resize shape of the main paths: the same bits."""
+    x = _resize_input(dev, (2, c, hi, hi)).to(dt)
+    got = resize.resize_bilinear(x, ho, ho)
+    ref = resize.resize_bilinear_plain(x, ho, ho)
+    assert got.shape == ref.shape and got.dtype == dt
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
+@pytest.mark.parametrize("planes,hw_in,hw_out", RESIZE_RAGGED)
+def test_resize_ragged_widths_bit_for_bit(dev, dt, planes, hw_in, hw_out):
+    x = _resize_input(dev, (1, planes, *hw_in), seed=1).to(dt)
+    got = resize.resize_bilinear(x, *hw_out)
+    assert torch.equal(got, resize.resize_bilinear_plain(x, *hw_out))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16])
+@pytest.mark.parametrize("shape,hw_out", [
+    ((2, 96, 16, 16), (32, 32)), ((2, 128, 4, 4), (8, 8)),
+    ((2, 20, 5, 7), (13, 21)), ((3, 3, 2, 5), (3, 11)),
+    ((1, 17, 8, 8), (8, 30))])
+def test_resize_channels_last_bit_for_bit(dev, dt, shape, hw_out):
+    """A channels-last map (the BatchNorm models' layout from their NHWC
+    input on): F.interpolate's values in F.interpolate's layout, lane
+    counts that do and do not fill a 16-byte chunk, below and above the
+    16 channels from which ATen takes its channels-last kernel, at ratios
+    whose weights are not short binary fractions (so that the kernels'
+    FMAs show)."""
+    x = _resize_input(dev, shape, seed=4).to(dt).to(
+        memory_format=torch.channels_last)
+    got = resize.resize_bilinear(x, *hw_out)
+    ref = resize.resize_bilinear_plain(x, *hw_out)
+    assert got.stride() == ref.stride() and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dt,hi,ho,span", [(torch.float32, 8, 32, 4),
+                                           (torch.bfloat16, 16, 32, 1),
+                                           (torch.bfloat16, 64, 128, 1)])
+def test_resize_backward_equals_interpolate(dev, dt, hi, ho, span):
+    """The op's gradient is F.interpolate's: ATen's backward, which adds
+    with atomics in no fixed order, so the output gradients are integers
+    in [-span, span] and the ratios powers of 2, where every partial sum is
+    exact in the dtype: then the two agree bit for bit."""
+    x = _resize_input(dev, (2, 96, hi, hi), seed=2).to(dt)
+    g = torch.Generator(device=dev).manual_seed(3)
+    w = torch.randint(-span, span + 1, (2, 96, ho, ho), generator=g,
+                      device=dev).to(dt)
+    grads = []
+    for fn in (resize.resize_bilinear, resize.resize_bilinear_plain):
+        xg = x.clone().requires_grad_(True)
+        fn(xg, ho, ho).backward(w)
+        grads.append(xg.grad)
+    assert grads[0].dtype == dt and torch.equal(*grads)
+
+
+def test_resize_rejects_what_the_kernel_does_not_take(dev):
+    x = torch.randn((2, 4, 8, 8), device=dev)
+    with pytest.raises(TypeError):
+        resize.resize_bilinear(x.double(), 16, 16)
+    with pytest.raises(ValueError):
+        resize.resize_bilinear(x[0], 16, 16)                    # 3-D
+    with pytest.raises(ValueError):
+        resize.resize_bilinear(x[..., ::2], 16, 16)             # strided
+    with pytest.raises(ValueError):
+        resize.resize_bilinear(x.transpose(2, 3), 16, 16)       # NCWH
+
+
+@pytest.mark.parametrize("which,want", [("tiny", 15), ("tiny_bn", 15),
+                                        ("shipped", 36)])
+def test_krrn_forward_resize_launches(dev, which, want):
+    """One launch a resize of the forward: the tiny HRNet's 1 + 3 + 6 fuse
+    resizes, 3 for the concat and 2 in the heads (with BatchNorm too,
+    whose maps are channels-last); the shipped one's 1 + 12 + 18 + 3 +
+    2."""
+    cfg = {"tiny": TINY, "shipped": schema.Config(),
+           "tiny_bn": schema.override(TINY, **{"module.norm": "bn"})}[which]
+    hw, n = cfg.data.input_size, cfg.data.num_points
+    torch.manual_seed(0)
+    model = KRRN(cfg).eval().to(dev)
+    rng = np.random.RandomState(0)
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.rand(2, hw, hw, 3).astype(np.float32),
+        (rng.randn(2, n, 3) * 0.05 + [0, 0, 0.8]).astype(np.float32),
+        rng.randint(0, hw * hw, (2, n)).astype(np.int64), np.array([0, 1]))]
+    resize.resize_bilinear.launches = 0
+    with torch.no_grad():
+        out = model(*args)
+    assert resize.resize_bilinear.launches == want
+    assert torch.isfinite(out["pred_t"]).all()

@@ -267,6 +267,7 @@ def test_transparent_train_step_spans_and_bits():
     _assert_same(*snaps)
     want = {"train.step": 1, "train.losses": 1, "transparent.forward": 1,
             "transparent.loss": 1, "op.nearest_multi": 1,
+            "op.resize_bilinear": 10,   # the UNet's ten up blocks
             "train.gradients": 1, **APPLY_SPANS}
     assert _calls(profiling.report()) == want
     rec = _by_name(profiling.records())
