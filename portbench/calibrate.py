@@ -35,15 +35,10 @@ def main(argv=None) -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from portbench import program
-    from portbench.check import serve as check_serve
-    from portbench.check import train as check_train
-    from portbench.drivers.serve import Serve
-    from portbench.drivers.train import Train
+    from portbench import found
     _, cell, cfg_file, mix = run.load_cell(args.workload)
     dev = torch.device("cuda", 0)
-    drivers = {"serve": (Serve, check_serve), "train": (Train, check_train)}
-    cls, chk = drivers[mix["driver"]]
+    cls = found.driver(mix["driver"])
     lower, upper = {}, {}
     for j, seed in enumerate(int(s) for s in args.seeds.split(",")):
         d = cls(cfg_file, mix, seed, dev)
@@ -60,7 +55,7 @@ def main(argv=None) -> int:
             if not k.startswith("_"):
                 lower[k] = max(lower.get(k, 0.0), v)
         if j < args.control:
-            ctl = chk.control_numbers(d)
+            ctl = d.control()
             ctl = ctl if "control" in ctl else {"control": ctl}
             line.update(ctl)
             for kind, nums in ctl.items():

@@ -98,6 +98,8 @@ def numbers(driver, limits=None) -> dict:
     ref = _reference(driver.cfg_file, driver.weights, dev)
     worst = {}
     for p, batch in enumerate(driver.pool):
+        if p not in driver.forward_out:     # a batch no request has used
+            continue
         b = {k: v.to(dev) for k, v in batch.items()}
         xyz_ref, t_ref = forward(ref, b)
         xyz_p, _ = driver.forward_out[p]
@@ -113,6 +115,8 @@ def numbers(driver, limits=None) -> dict:
             gaps["pred_t_gap_mm"] = float(torch.linalg.norm(
                 host["pred_t"].to(dev).float() - t_ref, dim=-1).max() * 1e3)
             _worst(worst, gaps)
+    for k in NUMBERS:                       # nothing served reads no gap
+        worst.setdefault(k, float("inf"))
     return worst
 
 

@@ -69,3 +69,9 @@ class Serve:
 
     def check(self, limits: dict) -> dict:
         return check_serve.numbers(self, limits)
+
+    def control(self) -> dict:
+        return check_serve.control_numbers(self)
+
+
+Driver = Serve

@@ -1,7 +1,7 @@
 """Training traffic: train steps at the mix's batch size on a pool of
 distinct batches held on the card, each through the trainer's own entry
-(TrainStep.__call__ or TransparentTrainStep.__call__), each ending in a
-sync of its metrics.
+(the family's `call_train`: TrainStep.__call__,
+TransparentTrainStep.__call__), each ending in a sync of its metrics.
 
 Set-up builds one train state and runs its first three steps through the
 same call on three different batches, keeping what the check compares:
@@ -48,7 +48,7 @@ class Train:
         self.timings["pool"] = time.perf_counter() - t - self.timings["weights"]
         self.model = program.build_model(cfg_file, self.weights, device)
         self.gen_seed = seeds(seed)[4]
-        self.state, self.entry = program.train_objects(
+        self.state, self.entry, self.call = program.train_objects(
             self.model, cfg_file, mix["total_steps"], self.gen_seed)
         self.total = self.entry.total
         self.losses, self.grad_norms, self.first_grad = [], [], {}
@@ -57,7 +57,7 @@ class Train:
             lambda g, k=k: self.first_grad.__setitem__(k, g.detach().clone()))
             for k, p in named.items()]
         for i in range(CHECKED_STEPS):
-            m = program.call_train(self.entry, self.state, self.pool[i])
+            m = self.call(self.state, self.pool[i])
             self.losses.append(float(m[self.total]))
             self.grad_norms.append(float(m["grad_norm"]))
             if i == 0:
@@ -78,7 +78,7 @@ class Train:
 
     def step(self, i: int, record: bool = True):
         batch = self.pool[(self.steps_done + i) % len(self.pool)]
-        m = program.call_train(self.entry, self.state, batch)
+        m = self.call(self.state, batch)
         return torch.stack([v.float() for v in m.values()]).to("cpu")
 
     def units(self, steps: int) -> int:
@@ -92,9 +92,15 @@ class Train:
         if self.state is not None:
             b = (self.steps_done + steps) % len(self.pool)
             before = (b, self.params(), self.state.generator.get_state())
-            m = program.call_train(self.entry, self.state, self.pool[b])
+            m = self.call(self.state, self.pool[b])
             self.after = before + (float(m[self.total]),)
-        self.state = self.entry = self.model = None
+        self.state = self.entry = self.call = self.model = None
 
     def check(self, limits: dict) -> dict:
         return check_train.numbers(self, limits)
+
+    def control(self) -> dict:
+        return check_train.control_numbers(self)
+
+
+Driver = Train

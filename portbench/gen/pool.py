@@ -14,6 +14,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from portbench import found
 from portbench.gen.batches import frame_to_sample
 from portbench.gen.synthetic import (SyntheticPoseDataset,
                                      SyntheticTransparentDataset)
@@ -118,10 +119,7 @@ def transparent_pool(schema: dict, mix: dict, seed: int) -> list:
 
 
 def make_pool(cfg_file: dict, mix: dict, seed: int) -> list:
-    """The mix's pool of batches (CPU tensors) for the configuration."""
-    serve = mix["driver"] == "serve"
-    if cfg_file["model"] == "krrn":
-        return krrn_pool(cfg_file["schema"], mix, seed, serve)
-    if serve:
-        raise ValueError("no serving traffic for the transparent model")
-    return transparent_pool(cfg_file["schema"], mix, seed)
+    """The mix's pool of batches (CPU tensors) for the configuration, from
+    its model family's reference half (which calls a generator here)."""
+    return found.family(cfg_file["model"], "reference").pool(
+        cfg_file["schema"], mix, seed)

@@ -1,30 +1,25 @@
 """Everything the benchmark takes from the program under test
-(pose_estimation_tpu_torch): its configuration type, its models, the
-serving and training entry points, the optimizer and train state, and
-the ops whose launches it counts. Nothing else in portbench imports the
-program, and the reference imports none of it."""
+(pose_estimation_tpu_torch): its configuration type, the optimizer and
+train state, each model family's model and entry points (through the
+family's program half, families/<model>/program.py), and the kernel ops
+whose launches it counts and whose calls it wraps (their entry points
+named by the op files, ops/<op>.py). Besides the families' program
+halves, nothing else in portbench imports the program, and the
+reference imports none of it."""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import importlib
 
 import torch
 
 import pose_estimation_tpu_torch as _pkg  # noqa: F401  (the system under test)
 from pose_estimation_tpu_torch.configs import schema
-from pose_estimation_tpu_torch.models.krrn import KRRN
-from pose_estimation_tpu_torch.models.transparent import TRPESNet
-from pose_estimation_tpu_torch.ops import gcn, pointops
-from pose_estimation_tpu_torch.serve import build_infer_step
 from pose_estimation_tpu_torch.train.optim import make_optimizer
 from pose_estimation_tpu_torch.train.state import TrainState
-from pose_estimation_tpu_torch.train.train_step import build_train_step
-from pose_estimation_tpu_torch.train.transparent_trainer import (
-    TransparentTrainStep, loss_weights)
-
-# the op entry points the kernel spans wrap: (module, attribute)
-OPS = ((gcn, "linear_multi"), (gcn, "surface_multi"), (gcn, "aggregate"),
-       (pointops, "knn"), (pointops, "nearest_multi"))
+from portbench import found
 
 
 def _build(cls, value):
@@ -57,16 +52,9 @@ def build_model(cfg_file: dict, weights: dict, device) -> torch.nn.Module:
     initialising anything, its parameters set to `weights` (copies)."""
     cfg = config(cfg_file)
     dtype = getattr(torch, cfg_file["dtype"])
+    fam = found.family(cfg_file["model"], "program")  # outside the meta device
     with torch.device("meta"):
-        if cfg_file["model"] == "krrn":
-            model = KRRN(cfg, dtype=dtype,
-                         fusion_variant=cfg_file.get("fusion_variant",
-                                                     "lite"))
-        elif cfg_file["model"] == "trpesnet":
-            model = TRPESNet(num_points=cfg.data.num_points,
-                             num_obj=cfg.module.num_cls, dtype=dtype)
-        else:
-            raise ValueError(f"model {cfg_file['model']!r}")
+        model = fam.build(cfg, dtype, cfg_file)
     model = model.to_empty(device=device)
     model.load_state_dict({k: v.clone() for k, v in weights.items()},
                           strict=True)
@@ -74,47 +62,49 @@ def build_model(cfg_file: dict, weights: dict, device) -> torch.nn.Module:
 
 
 def infer_step(model, cfg_file: dict):
-    return build_infer_step(model, config(cfg_file))
+    return found.family(cfg_file["model"], "program").infer_step(
+        model, config(cfg_file))
 
 
 def train_objects(model, cfg_file: dict, total_steps: int, gen_seed: int):
-    """(state, step): the train state with its generator on the model's
-    device seeded with `gen_seed`, and the configuration's train step."""
+    """(state, step, call): the train state with its generator on the
+    model's device seeded with `gen_seed`, the family's train step, and
+    call(state, batch), one step through the entry the trainer calls."""
     cfg = config(cfg_file)
+    fam = found.family(cfg_file["model"], "program")
     dev = next(model.parameters()).device
     tx = make_optimizer(cfg, total_steps=total_steps)
     state = TrainState.create(model, tx,
                               torch.Generator(device=dev).manual_seed(
                                   gen_seed))
-    if cfg_file["model"] == "krrn":
-        step = build_train_step(model, tx, cfg)
-    else:
-        step = TransparentTrainStep(model, tx, loss_weights(cfg))
-    return state, step
+    step = fam.train_step(model, tx, cfg)
+    return state, step, functools.partial(fam.call_train, step)
 
 
-def call_train(step, state, batch):
-    """One training step through the entry the trainer calls."""
-    if isinstance(step, TransparentTrainStep):
-        return step(state, batch)
-    return step(state, batch, opt_pose=True)
+def _entry(op) -> tuple:
+    """(module, attribute) of an op file's entry point."""
+    return importlib.import_module(op.ENTRY[0]), op.ENTRY[1]
 
 
 def launches() -> dict:
-    """The ops' launch counters."""
+    """The launch counters of every op file's op."""
     return {f"{getattr(m, a).__module__.rsplit('.', 1)[-1]}.{a}":
-            getattr(getattr(m, a), "launches", 0) for m, a in OPS}
+            getattr(getattr(m, a), "launches", 0)
+            for m, a in map(_entry, found.ops().values())}
 
 
-def wrap_ops(hook):
-    """Replace each op entry point in its module by `hook(name, fn)`'s
-    wrapper, carrying the launch counter over. Callers reach the ops
+def wrap_ops(hook, names):
+    """Replace the entry point of each op in `names` in its module by
+    `hook(op, fn, least)`'s wrapper, `least` the op file's least time of
+    a call, carrying the launch counter over. Callers reach the ops
     through their modules (models/fusion.py and gcn3d.py through ops.gcn,
-    core/pointops through ops.pointops), and the ops count their launches
-    through the same module names, so the counters go on in the
-    wrappers."""
-    for mod, attr in OPS:
+    core/pointops through ops.pointops, models/layers.py through
+    ops.resize), and the ops count their launches through the same module
+    names, so the counters go on in the wrappers."""
+    for name in names:
+        op = found.op(name)
+        mod, attr = _entry(op)
         fn = getattr(mod, attr)
-        wrapped = hook(attr, fn)
+        wrapped = hook(name, fn, op.least)
         wrapped.launches = getattr(fn, "launches", 0)
         setattr(mod, attr, wrapped)

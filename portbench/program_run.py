@@ -7,8 +7,8 @@ on from the stage spans' creation to the end of the window:
 
 It wraps run.py's steps from outside and changes none of them: tracing
 is turned on where run.py makes its stage spans and reset where it
-resets them, the program's report is taken before Serve.release or
-Train.release drops the program, and the profiler trace that
+resets them, the program's report is taken before the cell's driver's
+release drops the program, and the profiler trace that
 trace.reduce reads is reduced to the program's ranges too
 (program_trace.reduce). Besides
 run.py's output it prints the idle time by innermost program span, how
@@ -16,9 +16,9 @@ the program's ranges account for the window's idle time, and one last
 JSON line: the window's rate, the program's report, the reduction, and
 the per-request or per-step readings of the spans (`readings`).
 
-Besides program.py it is the one file of the benchmark that imports the
-program: its tracing module. The benchmark's own runs (portbench.run)
-leave the program's tracing off.
+Besides program.py and the families' program halves, it is the one file
+of the benchmark that imports the program: its tracing module. The
+benchmark's own runs (portbench.run) leave the program's tracing off.
 """
 
 from __future__ import annotations
@@ -74,8 +74,7 @@ def main(argv=None) -> int:
 
     from pose_estimation_tpu_torch.utils import profiling
     from portbench import program_trace, spans, trace
-    from portbench.drivers.serve import Serve
-    from portbench.drivers.train import Train
+    from portbench import found
     got = {}
 
     def after(obj, name, fn):
@@ -107,8 +106,8 @@ def main(argv=None) -> int:
     after(spans.StageSpans, "reset", lambda *a, out: profiling.reset())
     after(trace, "reduce", lambda tr, out: got.setdefault(
         "program_trace", program_trace.reduce(tr)))
-    before(Serve, "release", report)
-    before(Train, "release", report)
+    before(found.driver(run_mod.load_cell(args.workload)[3]["driver"]),
+           "release", report)
     before(run_mod, "read_metric", lambda name, run: got.setdefault(
         "run", run))
 

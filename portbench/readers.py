@@ -22,13 +22,26 @@ def span_ms(run: dict, stage: str):
     return total / calls if calls else None
 
 
-def kernel_roofline(run: dict):
-    """The least time the op calls' shapes allow over the device time of
-    the work launched inside their spans, in %."""
+# Kernels 1-5, the ops that `kernel_roofline.serve_fps` and
+# `kernel_roofline.train` sum over. An op file added later (kernel 6,
+# ops/resize_bilinear.py, on) gets a reading of its own and never enters
+# this sum, so these two metrics read what they read before it.
+KERNELS_1_5 = ("linear_multi", "surface_multi", "aggregate", "knn",
+               "nearest_multi")
+
+
+def op_roofline(run: dict, ops):
+    """The least time that the calls of `ops` allow, from their shapes,
+    over the device time of the work launched inside their spans, in %
+    (None where the trace holds no device time of them)."""
     tr = run.get("trace")
-    if not tr or not tr["op_device_s"] > 0:
+    if not tr:
         return None
-    return 100.0 * tr["least_s"] / tr["op_device_s"]
+    got = [tr["ops"][op] for op in ops if op in tr["ops"]]
+    device_s = sum(g[1] for g in got)
+    if not device_s > 0:
+        return None
+    return 100.0 * sum(g[0] for g in got) / device_s
 
 
 def mfu(run: dict):

@@ -85,13 +85,26 @@ def metrics_for(bench: dict, cell: dict, trace: bool) -> list:
                 else m["moves"] in moved)]
 
 
-def read_metric(name: str, run: dict):
+def metric_module(name: str):
     spec = importlib.util.spec_from_file_location(
         "portbench_metric_" + name.replace(".", "_"),
         HERE / "metrics" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read(run)
+    return mod
+
+
+def read_metric(name: str, run: dict):
+    return metric_module(name).read(run)
+
+
+def traced_ops(bench: dict, cell: dict) -> list:
+    """The kernel ops whose calls a traced run of `cell` wraps: those that
+    its per-layer metric files name in `OPS`, and no other, so that an op
+    file added later leaves the traced runs of cells that do not read it
+    as they were."""
+    return sorted({op for m in metrics_for(bench, cell, True)
+                   for op in getattr(metric_module(m["name"]), "OPS", ())})
 
 
 def gpu_state(index: int = 0) -> str:
@@ -191,9 +204,7 @@ def run_cell(bench, cell, cfg_file, mix, seed, seconds, trace, dev, start,
     (the CPU too, for the tests, without tracing); `keep` (a dict) gets
     the window's step times."""
     import torch
-    from portbench import check, program, spans, trace as trace_mod
-    from portbench.drivers.serve import Serve
-    from portbench.drivers.train import Train
+    from portbench import check, found, program, spans, trace as trace_mod
     now = time.perf_counter
     cuda = dev.type == "cuda"
 
@@ -210,13 +221,12 @@ def run_cell(bench, cell, cfg_file, mix, seed, seconds, trace, dev, start,
          f"{torch.get_num_threads()}; card before set-up: "
          f"{gpu_state() if cuda else '-'}")
     t_imported = time.time()
-    driver = {"serve": Serve, "train": Train}[mix["driver"]](
-        cfg_file, mix, seed, dev)
+    driver = found.driver(mix["driver"])(cfg_file, mix, seed, dev)
     stage_spans = op_spans = None
     if trace:
         stage_spans = spans.StageSpans(driver.entry, driver.stages)
         op_spans = spans.OpSpans()
-        program.wrap_ops(op_spans.hook)
+        program.wrap_ops(op_spans.hook, traced_ops(bench, cell))
     warm = warm_up(driver, mix["warmup"], now)
     sync()
     mem_warm = torch.cuda.max_memory_allocated(dev) if cuda else 0
@@ -279,8 +289,10 @@ def run_cell(bench, cell, cfg_file, mix, seed, seconds, trace, dev, start,
         with open(trace_file) as f:
             reduced = trace_mod.reduce(json.load(f))
         os.remove(trace_file)
-        reduced.update(least_s=op_spans.least_s, steps=traced_steps,
-                       flops_per_step=flops)
+        reduced.update(steps=traced_steps, flops_per_step=flops,
+                       ops={op: (least, reduced["op_device_s"].get(op, 0.0),
+                                 calls)
+                            for op, (least, calls) in op_spans.ops.items()})
         run["trace"] = reduced
     note(f"set-up {setup_s:.3f} s: {t_imported - start:.3f} to the driver, "
          + ", ".join(f"{k} {v:.3f}" for k, v in driver.timings.items())
@@ -298,9 +310,8 @@ def run_cell(bench, cell, cfg_file, mix, seed, seconds, trace, dev, start,
     if trace:
         tr = run["trace"]
         note(f"trace: {tr['steps']} steps in {tr['window_s']:.4f} s, busy "
-             f"{tr['busy_s']:.4f} s, ops' device time {tr['op_device_s']:.6f}"
-             f" s against a least {tr['least_s']:.6f} s "
-             f"({op_spans.calls} calls), device operations "
+             f"{tr['busy_s']:.4f} s, ops' least and device seconds and calls "
+             f"{json.dumps(tr['ops'])}, device operations "
              f"{tr['device_events']} ({tr['unattributed']} without a launch "
              f"event), flops a step {flops}; spans (ms, calls) "
              + json.dumps(run["spans"]))

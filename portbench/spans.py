@@ -4,9 +4,10 @@ Stage spans wrap an entry object's stage methods (InferStep.forward and
 .solve; TrainStep.losses, .gradients and .apply) as instance attributes:
 CUDA events before and after each call give its time on the device's
 stream, and a profiler range names the stage in the trace. Kernel spans
-wrap the op entry points in their modules (program.wrap_ops) in a
-profiler range each, and add up the least time each call's shapes allow
-(roofline.BOUNDS) while the profiler runs.
+wrap the entry points of the ops that the cell's metrics name
+(run.traced_ops) in their modules (program.wrap_ops) in a profiler range
+each, and add up, op by op, the calls and the least time each call's
+shapes allow (the op file's `least`) while the profiler runs.
 """
 
 from __future__ import annotations
@@ -14,8 +15,6 @@ from __future__ import annotations
 import functools
 
 import torch
-
-from portbench import roofline
 
 STAGE_PREFIX = "portbench.stage."
 OP_PREFIX = "portbench.op."
@@ -58,23 +57,22 @@ class StageSpans:
 
 
 class OpSpans:
-    """A profiler range around every op call, and the least seconds of the
-    calls made while `counting` is set."""
+    """A profiler range around every op call, and each op's least seconds
+    and calls over the calls made while `counting` is set."""
 
     def __init__(self):
         self.counting = False
-        self.least_s = 0.0
-        self.calls = 0
+        self.ops = {}           # op -> [least seconds, calls]
 
-    def hook(self, name, fn):
-        bound = roofline.BOUNDS[name]
+    def hook(self, name, fn, least):
         label = OP_PREFIX + name
+        acc = self.ops.setdefault(name, [0.0, 0])
 
         @functools.wraps(fn)
         def op(*args, **kw):
             if self.counting:
-                self.least_s += bound(*args, **kw)
-                self.calls += 1
+                acc[0] += least(*args, **kw)
+                acc[1] += 1
             with torch.profiler.record_function(label):
                 return fn(*args, **kw)
         return op

@@ -1,6 +1,7 @@
-"""The frozen yardstick: the least-time functions against chip_smoke.py's
-at phase 3's shapes, the FLOP count against a hand count, and the trace
-reduction on a trace of known intervals."""
+"""The frozen yardstick: the op files' least-time functions against
+chip_smoke.py's at phase 3's shapes (kernel 6's at check_resize's), the
+FLOP count against a hand count, and the trace reduction on traces of
+known intervals."""
 
 from __future__ import annotations
 
@@ -11,11 +12,12 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from portbench import roofline, trace
+from portbench import found, trace
 from portbench.reference.layers import Conv, Dense, Precision
 from portbench.spans import OP_PREFIX, STAGE_PREFIX, WINDOW
 
 ROOT = Path(__file__).resolve().parents[2]
+OPS = found.ops()
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +42,7 @@ def test_linear_bound_is_chip_smokes(smoke, n):
     nds, dirs, xs, ws, bs, idx, s = _gcn(n, n, 10)
     want = smoke.bound(smoke.linear_bytes(nds, dirs, xs, ws, bs, idx, s),
                        smoke.linear_ops(nds, xs, ws, idx, s))[0] * 1e-3
-    got = roofline.linear_bound(nds, dirs, xs, ws, bs, idx, s)
+    got = OPS["linear_multi"].least(nds, dirs, xs, ws, bs, idx, s)
     assert got == pytest.approx(want, rel=1e-12)
 
 
@@ -52,7 +54,7 @@ def test_aggregate_bound_is_chip_smokes(smoke):
     idx = torch.randint(0, 1024, (32, 1024, 10), generator=g,
                         dtype=torch.int32)
     want = smoke.aggregate_bound(nd, dirs, feats, idx, 7)[0] * 1e-3
-    assert roofline.aggregate_bound(nd, dirs, feats, idx, 7) == \
+    assert OPS["aggregate"].least(nd, dirs, feats, idx, 7) == \
         pytest.approx(want, rel=1e-12)
 
 
@@ -61,12 +63,13 @@ def test_point_and_surface_bounds_are_chip_smokes(smoke):
     q = torch.randn(32, 1024, 3)
     idx = torch.zeros(32, 1024, 10, dtype=torch.int32)
     want = smoke.bound(nb(q) + nb(idx), {"fp32": 32 * 1024 * 1024 * 9})[0]
-    assert roofline.knn_bound(q, q, 10, True) == pytest.approx(want * 1e-3)
+    assert OPS["knn"].least(q, q, 10, True) == pytest.approx(want * 1e-3)
     t, s1, s2 = torch.randn(8, 1024, 3), torch.randn(8, 256, 3), \
         torch.randn(8, 64, 3)
     want = smoke.bound(nb(t, s1, s2) + 2 * 8 * 1024 * 8,
                        {"fp32": 8 * 1024 * 320 * 9})[0]
-    assert roofline.nearest_bound(t, [s1, s2]) == pytest.approx(want * 1e-3)
+    assert OPS["nearest_multi"].least(t, [s1, s2]) == \
+        pytest.approx(want * 1e-3)
     nds, dirs = _gcn(1024, 1024, 10)[:2]
     a = [x.to(torch.bfloat16) for x in nds]
     d = [x.to(torch.bfloat16) for x in dirs]
@@ -74,7 +77,20 @@ def test_point_and_surface_bounds_are_chip_smokes(smoke):
     want = smoke.bound(nb(*a, *d) + 32 * 1024 * 3 * 128 * 4,
                        {"fp32": 32 * 1024 * 10 * 3 * so * 7
                         + 32 * 1024 * 3 * 128 * 6})[0]
-    assert roofline.surface_bound(a, d, 7) == pytest.approx(want * 1e-3)
+    assert OPS["surface_multi"].least(a, d, 7) == pytest.approx(want * 1e-3)
+
+
+@pytest.mark.parametrize("dtype", (torch.bfloat16, torch.float32))
+@pytest.mark.parametrize("shape, side", (((256, 128, 64, 64), 128),
+                                         ((256, 96, 16, 16), 32)))
+def test_resize_bound_is_chip_smokes(smoke, shape, side, dtype):
+    """check_resize's bound(nbytes(x, got), {}) at the heads' and the
+    fuse's shapes (meta tensors: only their sizes are read)."""
+    x = torch.empty(shape, dtype=dtype, device="meta")
+    got = torch.empty(shape[:2] + (side, side), dtype=dtype, device="meta")
+    want = smoke.bound(smoke.nbytes(x, got), {})[0] * 1e-3
+    assert OPS["resize_bilinear"].least(x, side, side) == \
+        pytest.approx(want, rel=1e-12)
 
 
 def test_flops_of_a_conv_and_a_matmul():
@@ -120,12 +136,41 @@ def test_trace_reduction():
     r = trace.reduce({"traceEvents": ev})
     assert r["window_s"] == pytest.approx(100e-6)
     assert r["busy_s"] == pytest.approx(40e-6)          # 40-60, 80-100
-    assert r["op_device_s"] == pytest.approx(10e-6)
+    assert r["op_device_s"] == {"knn": pytest.approx(10e-6)}
     assert r["unattributed"] == 1
     assert dict(r["device_ops"])["gemm"] == pytest.approx(35e-6)
     gaps = dict(r["idle_gaps"])
     assert gaps["no_stage___no_aten_op"] == pytest.approx(20e-6)
     assert gaps["forward___no_aten_op"] == pytest.approx(40e-6)
+
+
+def test_trace_splits_device_time_by_op():
+    """Two ops, one nested in another op's range: the ops' device times
+    add up to the device time of the work launched inside any op range
+    (the single sum the reduction kept before it split by op: 40 us)."""
+    ev = [_ev(WINDOW, "user_annotation", 0, 200),
+          _ev(OP_PREFIX + "knn", "user_annotation", 10, 20),
+          _ev(OP_PREFIX + "aggregate", "user_annotation", 50, 40),
+          _ev(OP_PREFIX + "surface_multi", "user_annotation", 60, 10),
+          _ev(OP_PREFIX + "resize_bilinear", "user_annotation", 100, 10),
+          _ev("cudaLaunchKernel", "cuda_runtime", 12, 1, correlation=1),
+          _ev("cudaLaunchKernel", "cuda_runtime", 30, 1, correlation=2),
+          _ev("cudaLaunchKernel", "cuda_runtime", 62, 1, correlation=3),
+          _ev("cudaLaunchKernel", "cuda_runtime", 80, 1, correlation=4),
+          _ev("cudaLaunchKernel", "cuda_runtime", 95, 1, correlation=5),
+          _ev("cudaLaunchKernel", "cuda_runtime", 105, 1, correlation=6),
+          _ev("k1", "kernel", 20, 5, tid=9, correlation=1),
+          _ev("k2", "kernel", 40, 7, tid=9, correlation=2),
+          _ev("k3", "kernel", 70, 11, tid=9, correlation=3),
+          _ev("k4", "kernel", 90, 13, tid=9, correlation=4),
+          _ev("k5", "kernel", 120, 17, tid=9, correlation=5),
+          _ev("k6", "kernel", 140, 4, tid=9, correlation=6)]
+    r = trace.reduce({"traceEvents": ev})
+    us = pytest.approx
+    assert r["op_device_s"] == {"knn": us(12e-6), "aggregate": us(24e-6),
+                                "resize_bilinear": us(4e-6)}
+    assert sum(r["op_device_s"].values()) == us(40e-6)
+    assert r["unattributed"] == 0
 
 
 def test_trace_of_a_cpu_profile():

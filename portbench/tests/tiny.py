@@ -4,26 +4,14 @@ from __future__ import annotations
 
 import copy
 
-from portbench import run
+from portbench import found, run
 
 
 def tiny_cell(workload: str):
     """(bench, cell, cfg_file, mix) of `workload` cut to a CPU size."""
     bench, cell, cfg_file, mix = run.load_cell(workload)
     cfg_file = copy.deepcopy(cfg_file)
-    s = cfg_file["schema"]
-    if cfg_file["model"] == "krrn":
-        s["module"].update(
-            num_cls=3, backbone_outc=16, stem_width=8,
-            hrnet_stages=[[1, 1, [8, 8]], [1, 1, [8, 8, 16]],
-                          [1, 1, [8, 8, 16, 16]]],
-            xyznet={"hidden": 16, "out": 3}, nmlnet={"hidden": 16, "out": 3},
-            gcn3d={"neighbor_num": 4, "support_num": 2})
-        s["data"].update(num_regions=8, num_points=128, input_size=64)
-        s["eval"].update(num_pnp_points=64, pnp_hypotheses=8)
-    else:
-        s["module"].update(num_cls=3)
-        s["data"].update(num_points=32, input_size=32)
+    found.family(cfg_file["model"], "reference").tiny(cfg_file["schema"])
     mix = dict(mix, batch_size=min(mix["batch_size"], 2),
                pool_batches=3 if mix["driver"] == "train" else 2,
                warmup=dict(mix["warmup"], min_steps=1, min_seconds=0.0,

@@ -2,8 +2,8 @@
 torch.profiler exports) to what the per-layer metrics read: the device's
 busy time as the union of its operations' intervals within the traced
 window, the operations that took most time, the longest idle gaps by what
-the host was doing, and the device time of the work launched inside the
-op spans."""
+the host was doing, and, op by op, the device time of the work launched
+inside the op's spans."""
 
 from __future__ import annotations
 
@@ -34,12 +34,6 @@ def union(intervals):
     return [(s, e) for s, e in out]
 
 
-def _inside(merged, t):
-    """Index of the merged interval holding t, or -1."""
-    i = bisect.bisect_right(merged, (t, float("inf"))) - 1
-    return i if i >= 0 and merged[i][0] <= t <= merged[i][1] else -1
-
-
 def _outermost(events):
     """(start, end, name) of the events no other contains, sorted."""
     out = []
@@ -50,6 +44,28 @@ def _outermost(events):
     return out
 
 
+def _op_ranges(ranges):
+    """union() of (start, end, op) ranges, each merged interval named by
+    the op of its outermost range (the first to start, the longest of
+    those); ranges that only touch stay apart."""
+    out = []
+    for s, e, name in sorted(ranges, key=lambda r: (r[0], -r[1])):
+        if out and s < out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e, name])
+    return [tuple(r) for r in out]
+
+
+def _op_at(ranges, t):
+    """The op of the merged op range holding t (ends included), or
+    None."""
+    i = bisect.bisect_right(ranges, (t, float("inf"), "")) - 1
+    if i >= 0 and ranges[i][0] <= t <= ranges[i][1]:
+        return ranges[i][2]
+    return None
+
+
 def _label_at(tops, t, default):
     i = bisect.bisect_right(tops, (t, float("inf"), "")) - 1
     if i >= 0 and tops[i][0] <= t < tops[i][1]:
@@ -58,9 +74,13 @@ def _label_at(tops, t, default):
 
 
 def reduce(trace: dict) -> dict:
-    """busy_s, window_s, device_ops, idle_gaps, op_device_s and
-    unattributed (device operations without a launch event) of a trace
-    whose window is the profiler range named spans.WINDOW."""
+    """busy_s, window_s, device_ops, idle_gaps, op_device_s ({op: device
+    seconds of the work launched inside its ranges}) and unattributed
+    (device operations without a launch event) of a trace whose window is
+    the profiler range named spans.WINDOW. An op range inside another (an
+    op that calls another through its module) counts for the outer op, so
+    the ops' device times add up to that of the work launched inside any
+    op range."""
     events = [e for e in trace.get("traceEvents", [])
               if e.get("ph") == "X" and "dur" in e]
     win = [e for e in events if e.get("name") == WINDOW]
@@ -103,21 +123,23 @@ def reduce(trace: dict) -> dict:
         prev = max(prev, e)
     idle_gaps = sorted(gaps.items(), key=lambda kv: -kv[1])[:TOP]
 
-    op_spans = union([(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                      for e in host if e["name"].startswith(OP_PREFIX)])
+    op_ranges = _op_ranges([(float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                             e["name"][len(OP_PREFIX):]) for e in host
+                            if e["name"].startswith(OP_PREFIX)])
     launched = {}
     for e in events:
         if e.get("cat") in LAUNCH_CATS:
             c = e.get("args", {}).get("correlation")
             if c is not None:
-                launched[c] = _inside(op_spans, float(e["ts"])) >= 0
-    op_us, unattributed = 0.0, 0
+                launched[c] = _op_at(op_ranges, float(e["ts"]))
+    op_us, unattributed = defaultdict(float), 0
     for s, e, _, corr in dev:
         if corr not in launched:
             unattributed += 1
-        elif launched[corr]:
-            op_us += e - s
+        elif launched[corr] is not None:
+            op_us[launched[corr]] += e - s
     return {"busy_s": busy_us * 1e-6, "window_s": (w1 - w0) * 1e-6,
             "device_ops": device_ops, "idle_gaps": idle_gaps,
-            "op_device_s": op_us * 1e-6, "unattributed": unattributed,
+            "op_device_s": {k: v * 1e-6 for k, v in op_us.items()},
+            "unattributed": unattributed,
             "device_events": len(dev)}

@@ -18,21 +18,16 @@ import math
 
 import torch
 
+from portbench import found
 from portbench.reference.layers import GroupNorm, Precision
-from portbench.reference.krrn import KRRN, ConvLayer, ConvSurface
-from portbench.reference.trpesnet import TRPESNet
+from portbench.reference.krrn import ConvLayer, ConvSurface
 
 NORM_SHIFT = 0.5
 
 
 def reference_model(cfg_file: dict, q: Precision) -> torch.nn.Module:
-    if cfg_file["model"] == "krrn":
-        if cfg_file.get("fusion_variant", "lite") != "lite":
-            raise ValueError("the reference KRRN has FusionNetLite only")
-        return KRRN(cfg_file["schema"], q)
-    if cfg_file["model"] == "trpesnet":
-        return TRPESNet(cfg_file["schema"], q)
-    raise ValueError(f"model {cfg_file['model']!r}")
+    return found.family(cfg_file["model"], "reference").reference_model(
+        cfg_file, q)
 
 
 def _bound(name: str, shape, kind: str) -> float | None:
@@ -48,13 +43,19 @@ def _bound(name: str, shape, kind: str) -> float | None:
 
 
 def make_weights(cfg_file: dict, seed: int, device) -> dict:
-    """{name: fp32 tensor on `device`} for the configuration's model."""
+    """{name: fp32 tensor on `device`} for the configuration's model.
+    A family whose normalisation or 3D-GCN leaves sit in modules of other
+    classes names them in its reference half's `leaf_kinds(model)`
+    ({leaf: "norm" or "gcn"})."""
+    fam = found.family(cfg_file["model"], "reference")
     with torch.device("meta"):
-        ref = reference_model(cfg_file, Precision("fp32"))
+        ref = fam.reference_model(cfg_file, Precision("fp32"))
     kinds = {f"{mn}.{pn}": ("norm" if isinstance(m, GroupNorm) else "gcn")
              for mn, m in ref.named_modules()
              if isinstance(m, (GroupNorm, ConvLayer, ConvSurface))
              for pn, _ in m.named_parameters(recurse=False)}
+    if hasattr(fam, "leaf_kinds"):
+        kinds.update(fam.leaf_kinds(ref))
     shapes = [(n, p.shape) for n, p in ref.named_parameters()]
     total = sum(math.prod(s) for _, s in shapes)
     g = torch.Generator(device=device).manual_seed(seed)
