@@ -21,6 +21,12 @@ Under bf16 the dtypes follow the JAX model's promotions: PSPUpsample's
 PReLU multiplies by its fp32 `prelu_alpha`, so each branch leaves its
 first PSPUpsample in fp32 and resizes in fp32 from there; the colour,
 normal, depth and mask convolutions run in fp32; the fused map is fp32.
+
+With tracing on (utils/profiling.py) the forward's parts are the spans
+pspnet.backbone (ResNet18Stride8), pspnet.psp (PSPModule),
+pspnet.decoder (PSPDecoder and the mask / boundary Conv_0),
+pspnet.geometry (GeoNet and the two pixel gathers) and pspnet.points
+(PointFeatNet and PosePredNet); none of them synchronises the host.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from pose_estimation_tpu_torch.models.layers import (
     upsample2x)
 from pose_estimation_tpu_torch.models.transparent import (
     GeometryNet, TransformerEncoderBlock, select_object)
+from pose_estimation_tpu_torch.utils.profiling import span
 
 # the decoder's dropout rates in flax's trace order: the 0.3 one on the
 # PSP map before the colour branch, then two in each of the three branches
@@ -53,10 +60,11 @@ def _cat(xs: list) -> torch.Tensor:
 def dropout_keep(x: torch.Tensor, keep: torch.Tensor | None,
                  rate: float) -> torch.Tensor:
     """flax nn.Dropout with its mask `keep` given (None: no dropout):
-    lax.select(keep, x / keep_prob, 0), keep_prob in x's dtype."""
+    lax.select(keep, x / keep_prob, 0), keep_prob in x's dtype (filled
+    on the device: a host scalar copied there would synchronise)."""
     if keep is None:
         return x
-    p = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    p = torch.full((), 1.0 - rate, dtype=x.dtype, device=x.device)
     return torch.where(keep.to(x.device), x / p, torch.zeros_like(x))
 
 
@@ -318,20 +326,24 @@ class TransparentPoseNet(Named):
     def forward(self, img, intrinsic, xmap, ymap, d_scale, obj, choose,
                 masks=None):
         b = img.shape[0]
-        f = self.ResNet18Stride8_0(img.permute(0, 3, 1, 2))
-        p = self.PSPModule_0(f)
-        color, normal, depth, f3 = self.PSPDecoder_0(p, masks)
-        mask = torch.sigmoid(self.Conv_0(f3.float()))
-        geom = self.GeoNet_0(f3, intrinsic, xmap, ymap, d_scale)
-
-        ids = choose.long()
-        color_emb = torch.gather(color.flatten(2), 2, ids[:, None].expand(
-            -1, color.shape[1], -1)).transpose(1, 2)           # [B, n, 32]
-        flat = geom.flatten(2, 3)                               # [B, C, HW, 3]
-        geom_emb = torch.gather(flat, 2, ids[:, None, :, None].expand(
-            b, flat.shape[1], -1, 3)).transpose(1, 2)          # [B, n, C, 3]
-        apx = self.PointFeatNet_0(geom_emb, color_emb)
-        rx, tx, cx = self.PosePredNet_0(apx, obj)
+        with span("pspnet.backbone"):
+            f = self.ResNet18Stride8_0(img.permute(0, 3, 1, 2))
+        with span("pspnet.psp"):
+            p = self.PSPModule_0(f)
+        with span("pspnet.decoder"):
+            color, normal, depth, f3 = self.PSPDecoder_0(p, masks)
+            mask = torch.sigmoid(self.Conv_0(f3.float()))
+        with span("pspnet.geometry"):
+            geom = self.GeoNet_0(f3, intrinsic, xmap, ymap, d_scale)
+            ids = choose.long()
+            color_emb = torch.gather(color.flatten(2), 2, ids[:, None].expand(
+                -1, color.shape[1], -1)).transpose(1, 2)       # [B, n, 32]
+            flat = geom.flatten(2, 3)                           # [B, C, HW, 3]
+            geom_emb = torch.gather(flat, 2, ids[:, None, :, None].expand(
+                b, flat.shape[1], -1, 3)).transpose(1, 2)      # [B, n, C, 3]
+        with span("pspnet.points"):
+            apx = self.PointFeatNet_0(geom_emb, color_emb)
+            rx, tx, cx = self.PosePredNet_0(apx, obj)
         nhwc = lambda t: t.permute(0, 2, 3, 1)
         return {"quat": rx, "trans": tx, "conf": cx, "color": nhwc(color),
                 "normal": nhwc(normal), "depth": nhwc(depth),

@@ -6,13 +6,15 @@ configs, one thread:
   on: the spans' parent and root ids, self time, counters in the
       innermost span and summed up the tree, the `pose/` ranges in a
       CPU profiler trace;
-  InferStep, TrainStep and TransparentTrainStep: the span names with
-      their calls, and every output and the train state the same bits
-      with tracing on and off;
+  InferStep, TrainStep and TransparentTrainStep (TRPESNet and the PSPNet
+      generation, whose five pspnet.* spans lie in transparent.forward):
+      the span names with their calls, and every output and the train
+      state the same bits with tracing on and off;
   the host-sync counter with CUDA faked: each sync warning counts once
       and is not shown, enable(False) restores the mode, the filters and
       the display.
-The one test marked gpu counts a real sync on a card:
+The two tests marked gpu count real syncs on a card (the PSPNet step's
+spans none):
 
   python -m pytest --noconftest -p no:cacheprovider -m gpu \\
       tests/test_torch_profiling.py -q
@@ -275,6 +277,44 @@ def test_transparent_train_step_spans_and_bits():
             == rec["train.losses"][0]["id"])
 
 
+PSPNET_SPANS = ("pspnet.backbone", "pspnet.psp", "pspnet.decoder",
+                "pspnet.geometry", "pspnet.points")
+
+
+def test_pspnet_train_step_spans_and_bits():
+    """The PSPNet generation's step: the five pspnet.* spans once each,
+    children of transparent.forward, without host syncs; off, none is
+    recorded and every output and the state are the same bits."""
+    batch = W.local_batch(W.posenet_batch())
+    snaps = []
+    for on in (False, True):
+        state, step = W.posenet_setup(gen_seed=5)
+        profiling.enable(on)
+        metrics = step(state, batch)
+        profiling.enable(False)
+        snaps.append(_snapshot(state, metrics))
+        if not on:
+            assert profiling.records() == []
+    _assert_same(*snaps)
+    want = {"train.step": 1, "train.losses": 1, "transparent.forward": 1,
+            "transparent.loss": 1, "op.nearest_multi": 1,
+            # the pyramid's 3 (its 6 x 6 prior is the map's own size) and
+            # the decoder's 9
+            "op.resize_bilinear": 12,
+            "train.gradients": 1, **APPLY_SPANS,
+            **{name: 1 for name in PSPNET_SPANS}}
+    report = profiling.report()
+    assert _calls(report) == want
+    rec = _by_name(profiling.records())
+    forward = rec["transparent.forward"][0]
+    for name in PSPNET_SPANS:
+        assert rec[name][0]["parent"] == forward["id"], name
+        assert report["spans"][name]["counters_inclusive"].get(
+            "host_syncs", 0) == 0, name
+    order = sorted(PSPNET_SPANS, key=lambda n: rec[n][0]["start_ns"])
+    assert order == list(PSPNET_SPANS)
+
+
 @pytest.fixture
 def fake_cuda(monkeypatch):
     """CUDA reported available, the sync debug mode a plain value, no
@@ -360,3 +400,25 @@ def test_host_syncs_on_a_card():
     assert rep["spans"]["sync"]["counters"] == {"host_syncs": 3}
     assert rep["spans"]["request"]["counters_inclusive"] == {"host_syncs": 3}
     assert rep["spans"]["request"]["stream_ms"] >= 0.0
+
+
+@pytest.mark.gpu
+def test_pspnet_spans_sync_free_on_a_card():
+    """The tiny PSPNet train step on a card: its five spans count no host
+    sync (the dropouts' keep_prob is filled on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    state, step = W.posenet_setup(gen_seed=5)
+    state = TrainState.create(state.model.to("cuda"), step.tx,
+                              torch.Generator(device="cuda").manual_seed(5))
+    batch = {k: v.cuda() for k, v in
+             W.local_batch(W.posenet_batch()).items()}
+    step(state, batch)
+    profiling.enable(True)
+    step(state, batch)
+    profiling.enable(False)
+    spans = profiling.report()["spans"]
+    for name in PSPNET_SPANS:
+        assert spans[name]["calls"] == 1, name
+        assert spans[name]["counters_inclusive"].get("host_syncs", 0) == 0, (
+            name, spans[name]["counters_inclusive"])
