@@ -27,7 +27,11 @@ Phases (each raises on failure, the script then exits non-zero):
      times; the bilinear resize kernel at the heads' 64 -> 128 and a fuse
      layer's 16 -> 32 (bf16, 256 frames) bit for bit against
      F.interpolate, its wrapper's and its own device time, the bound,
-     F.interpolate's time and ATen's grid and block;
+     F.interpolate's time and ATen's grid and block; the Ranger kernel
+     at the TRPESNet and PSPNet leaf sets (a clipped sync step and a
+     plain one) against the plain chain on the card, its device time by
+     kernel against its byte bound, the plain chain's time, the launches
+     of each a step;
   4. the pose stage fed ground-truth normalised coordinates of a synthetic
      batch: mean rotation error < 1 deg and ADD@0.1d >= 0.9;
   5. the shipped schema.Config() KRRN (full HRNet, 13 classes, 1024
@@ -222,6 +226,8 @@ KERNELS = {
                   "pose_estimation_tpu/ops/pallas_gcn.py:588"),
     "resize_bilinear": ("pose_estimation_tpu_torch/csrc/resize.cu",
                         "none: jax.image.resize, XLA"),
+    "ranger_apply": ("pose_estimation_tpu_torch/csrc/ranger.cu",
+                     "none: optax's chain, XLA"),
 }
 
 # launches per serving forward / train step on each path
@@ -313,7 +319,8 @@ def plain_kernels():
 
 
 def reset_counts():
-    from pose_estimation_tpu_torch.ops import gcn, pointops, resize
+    from pose_estimation_tpu_torch.ops import gcn, optim, pointops, resize
+    optim.ranger_apply.launches = 0
     gcn.linear_multi.launches = 0
     gcn.surface_multi.launches = 0
     gcn.aggregate.launches = 0
@@ -323,13 +330,14 @@ def reset_counts():
 
 
 def read_counts():
-    from pose_estimation_tpu_torch.ops import gcn, pointops, resize
+    from pose_estimation_tpu_torch.ops import gcn, optim, pointops, resize
     return {"linear_multi": gcn.linear_multi.launches,
             "surface_multi": gcn.surface_multi.launches,
             "knn": pointops.knn.launches,
             "min_dists": pointops.nearest_multi.launches,
             "aggregate": gcn.aggregate.launches,
-            "resize_bilinear": resize.resize_bilinear.launches}
+            "resize_bilinear": resize.resize_bilinear.launches,
+            "ranger_apply": optim.ranger_apply.launches}
 
 
 def launches_match(counts, want):
@@ -879,6 +887,137 @@ def check_resize(dev, g, reps=10):
                        "bound_ms")}
     return dict(total, max_abs_err=0.0, bound_by="bytes", shapes=rows,
                 tolerance="bit for bit")
+
+
+RANGER_MODELS = ("trpesnet", "pspnet")
+RANGER_TOL = 1e-6
+RANGER_KERNELS = ("rg_reduce", "rg_finish", "rg_update")
+
+
+def ranger_leaves(which):
+    """{name: shape} of the parameters of the transparent model `which`
+    (TRPESNet or the PSPNet generation) at schema.transparent_cleargrasp()."""
+    import torch
+    from pose_estimation_tpu_torch.configs import schema
+    from pose_estimation_tpu_torch.train.transparent_trainer import (
+        build_model)
+    cfg = schema.transparent_cleargrasp()
+    if which == "pspnet":
+        cfg = schema.override(cfg, **{"module.transparent_model": "posenet"})
+    return {k: tuple(p.shape)
+            for k, p in build_model(cfg, device="meta").named_parameters()}
+
+
+def _ranger_gaps(got, ref):
+    """The largest |got - ref| of each state (parameters, mu, nu, slow)
+    over every leaf, as a share of the state's largest |ref| in the model;
+    the worst (share, state, leaf)."""
+    worst = (0.0, "", "")
+    for s, a, b in zip(("params", "mu", "nu", "slow"), got, ref):
+        top = max(float(v.abs().max()) for v in b.values())
+        for k in b:
+            worst = max(worst, (float((a[k] - b[k]).abs().max()) / top, s, k))
+    return worst
+
+
+def check_ranger(dev, g, reps=20):
+    """The Ranger kernel (ops/optim.py:ranger_apply) at the transparent
+    models' leaf sets, the convolutions' gradients channels-last as cuDNN
+    gives them: a clipped Lookahead sync step and a plain step against the
+    plain chain on the card (parameters, mu, nu and slow within RANGER_TOL
+    of their largest magnitude in the model, the norm within RANGER_TOL;
+    the reductions' order is the only departure); the
+    wrapper's time and its kernels' device time (torch.profiler), the plain
+    chain's time, the launches of each in a step, and the bound (bytes:
+    the gradient read twice, the parameter and both moments read and
+    written, the slow weight too on a sync step, over 3.35 TB/s). Returns
+    TRPESNet's row with every model's under "shapes"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from pose_estimation_tpu_torch.ops import optim as ops_optim
+    from pose_estimation_tpu_torch.train.optim import Ranger
+    rows = {}
+    for which in RANGER_MODELS:
+        shapes = ranger_leaves(which)
+        n = sum(math.prod(s) for s in shapes.values())
+        params = {k: torch.randn(s, generator=g, device=dev) * 0.05
+                  for k, s in shapes.items()}
+        tx = Ranger(lambda c: 3e-4, grad_clip=10.0)
+        state = tx.init(params)
+        state["count"] = 5
+        twin = ({k: v.clone() for k, v in params.items()},
+                {"count": 5, **{s: {k: v.clone() for k, v in state[s].items()}
+                                for s in ("mu", "nu", "slow")}})
+        loss = torch.tensor(1.0, device=dev)
+        worst = (0.0, "", "")
+        for norm in (30.0, 3.0):            # clipped sync; plain
+            grads = {k: torch.randn(s, generator=g, device=dev).contiguous(
+                memory_format=torch.channels_last if len(s) == 4
+                else torch.contiguous_format) for k, s in shapes.items()}
+            total = float(torch.sqrt(sum((x.double() ** 2).sum()
+                                         for x in grads.values())))
+            for x in grads.values():
+                x.mul_(norm / total)
+            args = tx.step_args(state["count"])
+            got = ops_optim.ranger_apply(params, grads, state, loss, **args)
+            ref = ops_optim.ranger_apply_plain(twin[0], grads, twin[1],
+                                               loss, **args)
+            gn, ref_gn = float(got[0]), float(ref[0])
+            if (bool(got[1]) != bool(ref[1])
+                    or abs(gn - ref_gn) > RANGER_TOL * ref_gn):
+                raise AssertionError(f"ranger {which}: norm {gn}, finite "
+                                     f"{bool(got[1])} against {ref_gn}, "
+                                     f"{bool(ref[1])}")
+            worst = max(worst, _ranger_gaps(
+                (params, *(state[s] for s in ("mu", "nu", "slow"))),
+                (twin[0], *(twin[1][s] for s in ("mu", "nu", "slow")))))
+        if worst[0] > RANGER_TOL:
+            raise AssertionError(f"ranger {which}: {worst[1]} of {worst[2]} "
+                                 f"off by {worst[0]:.3g} of its largest")
+        row = {"leaves": len(shapes), "elements": n, "max_rel_err": worst[0]}
+        for sync in (False, True):
+            args = tx.step_args(5 if sync else 6)
+            step = lambda: ops_optim.ranger_apply(params, grads, state, loss,
+                                                  **args)
+            plain = lambda: ops_optim.ranger_apply_plain(
+                twin[0], grads, twin[1], loss, **args)
+            step()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    step()
+                torch.cuda.synchronize()
+            on_card = torch.autograd.DeviceType.CUDA
+            device = [e for e in prof.events() if e.device_type == on_card]
+            split = {k: sum(e.device_time for e in device if k in e.name)
+                     / reps / 1e3 for k in RANGER_KERNELS}
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                plain()
+                torch.cuda.synchronize()
+            plain_launches = sum(e.device_type == on_card
+                                 for e in prof.events())
+            b_ms, _ = bound(n * (40 if sync else 32), {})
+            tag = "sync" if sync else "step"
+            row[tag] = {"ms": cuda_ms(step, reps=reps),
+                        "device_ms": sum(split.values()), "split_ms": split,
+                        "plain_ms": cuda_ms(plain, reps=5),
+                        "bound_ms": b_ms, "launches": len(device) // reps,
+                        "plain_launches": plain_launches}
+            r = row[tag]
+            log(f"  ranger {which} ({len(shapes)} leaves, {n} fp32, {tag}): "
+                f"within {worst[0]:.2g}; kernel {r['ms']:.4f} ms (device "
+                f"{r['device_ms']:.4f}: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in split.items())
+                + f"), {r['launches']} launches; plain {r['plain_ms']:.4f} "
+                f"ms, {plain_launches} launches; bound {b_ms:.4f} ms "
+                f"({b_ms / r['device_ms']:.1%} of it on the device)")
+        rows[which] = row
+    top = rows[RANGER_MODELS[0]]["step"]
+    return dict(ms=top["ms"], device_ms=top["device_ms"],
+                plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                bound_by="bytes", library_ms=None,
+                max_abs_err=max(r["max_rel_err"] for r in rows.values()),
+                tolerance=f"{RANGER_TOL} of each state's largest magnitude",
+                shapes=rows)
 
 
 # ---------------------------------------------------------------------------
@@ -3118,7 +3257,8 @@ def main(argv=None) -> int:
                "knn": check_knn(dev, g),
                "min_dists": check_min_dists(dev, g),
                "aggregate": check_aggregate(dev, g),
-               "resize_bilinear": check_resize(dev, g)}
+               "resize_bilinear": check_resize(dev, g),
+               "ranger_apply": check_ranger(dev, g)}
     split = kernel_split(dev)
     for name, _ in AGG_SHAPES:
         row = split[f"aggregate {name}"]
@@ -3205,8 +3345,8 @@ def main(argv=None) -> int:
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu,
-                        "launches": paths["train_full_s2"][name],
-                        "launches_by_path": {p: c[name]
+                        "launches": paths["train_full_s2"].get(name),
+                        "launches_by_path": {p: c.get(name)
                                              for p, c in paths.items()},
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -6,7 +6,7 @@ plain C interface; ctypes loads it. The library goes to
 <checkout>/build/kernels/<hash of the sources and flags>/, so an edit to a
 source triggers a rebuild and a stale build is never loaded. Nothing is
 built when this module is imported: only `library()` builds, and only the
-wrappers in ops.pointops / ops.gcn / ops.resize call it, for CUDA
+wrappers in ops.pointops / ops.gcn / ops.resize / ops.optim call it, for CUDA
 tensors.
 """
 
@@ -46,6 +46,8 @@ _SIGNATURES = {
     "pose_gcn_aggregate": [_P, _P, _P, _I, _P, _L, _L, _P, _I, _I, _I, _I,
                            _I, _I, _I, _P],
     "pose_resize_bilinear": [_P, _P, _L] + [_I] * 9 + [_P],
+    "pose_ranger_apply": [_P] * 7 + [_I] * 5 + [_F, _I] + [_F] * 8
+                         + [_I, _F, _F, _F, _I, _F, _P],
 }
 
 

@@ -140,6 +140,47 @@ def clip_by_global_norm(grads: dict, max_norm: float) -> dict:
             for k, v in grads.items()}
 
 
+def nan_guard(grads: dict, loss: torch.Tensor):
+    """The train step's NaN guard (the JAX package's, to the letter):
+    (grads, gnorm, finite), gnorm the global norm of `grads` before any
+    clip, finite whether it and `loss` are finite, grads zeroed where
+    they are not."""
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                           for g in grads.values()))
+    finite = torch.isfinite(loss) & torch.isfinite(gnorm)
+    return ({k: torch.where(finite, g, torch.zeros_like(g))
+             for k, g in grads.items()}, gnorm, finite)
+
+
+@torch.no_grad()
+def ranger_chain(grads: dict, state: dict, params: dict, *, grad_clip,
+                 weight_decay, count, c1, c2, r, step_size, lr_scale, sync):
+    """Ranger's update from its host scalars (Ranger.step_args): the clip,
+    centralisation, RAdam (the rectifier r, or plain momentum where r is
+    None), weight decay, the learning rate and Lookahead, leaf by leaf.
+    (updates, new state), the state's count `count`."""
+    b1, b2, eps, alpha = Ranger.b1, Ranger.b2, Ranger.eps, Ranger.alpha
+    grads = clip_by_global_norm(grads, grad_clip)
+    mu, nu, slow, updates = {}, {}, {}, {}
+    for k, p in params.items():
+        v = centralise(k, grads[k])
+        mu[k] = (1 - b1) * v + b1 * state["mu"][k]
+        nu[k] = (1 - b2) * (v * v) + b2 * state["nu"][k]
+        u = mu[k] / c1
+        if r is not None:
+            u = r * u / (torch.sqrt(nu[k] / c2) + eps)
+        if weight_decay:
+            u = u + weight_decay * p
+        u = (step_size * u) * lr_scale
+        s = state["slow"][k]
+        if sync:
+            synced = s + alpha * ((p + u) - s)
+            updates[k], slow[k] = synced - p, synced
+        else:
+            updates[k], slow[k] = u, s
+    return updates, {"count": count, "mu": mu, "nu": nu, "slow": slow}
+
+
 class Ranger:
     """The clip + Ranger chain above, optax-style: `init(params)` ->
     state, `update(grads, state, params, lr_scale)` -> (updates, state),
@@ -174,32 +215,22 @@ class Ranger:
         return (float(f(1) - _pow_f32(self.b1, count)), float(f(1) - b2t),
                 r)
 
+    def step_args(self, count: int, lr_scale: float = 1.0) -> dict:
+        """The host scalars of the update from the state's `count`: the
+        keywords of ranger_chain and ops.optim.ranger_apply (count, the
+        count after it)."""
+        new = count + 1
+        c1, c2, r = self._radam_scalars(new)
+        return {"grad_clip": self.grad_clip,
+                "weight_decay": self.weight_decay, "count": new, "c1": c1,
+                "c2": c2, "r": r, "step_size": -self.schedule(count),
+                "lr_scale": lr_scale, "sync": new % self.sync_period == 0}
+
     @torch.no_grad()
     def update(self, grads: dict, state: dict, params: dict,
                lr_scale: float = 1.0):
-        grads = clip_by_global_norm(grads, self.grad_clip)
-        count = state["count"] + 1
-        c1, c2, r = self._radam_scalars(count)
-        step_size = -self.schedule(state["count"])
-        sync = count % self.sync_period == 0
-        mu, nu, slow, updates = {}, {}, {}, {}
-        for k, p in params.items():
-            v = centralise(k, grads[k])
-            mu[k] = (1 - self.b1) * v + self.b1 * state["mu"][k]
-            nu[k] = (1 - self.b2) * (v * v) + self.b2 * state["nu"][k]
-            u = mu[k] / c1
-            if r is not None:
-                u = r * u / (torch.sqrt(nu[k] / c2) + self.eps)
-            if self.weight_decay:
-                u = u + self.weight_decay * p
-            u = (step_size * u) * lr_scale
-            s = state["slow"][k]
-            if sync:
-                synced = s + self.alpha * ((p + u) - s)
-                updates[k], slow[k] = synced - p, synced
-            else:
-                updates[k], slow[k] = u, s
-        return updates, {"count": count, "mu": mu, "nu": nu, "slow": slow}
+        return ranger_chain(grads, state, params,
+                            **self.step_args(state["count"], lr_scale))
 
 
 class Adam:

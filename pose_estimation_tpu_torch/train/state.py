@@ -4,7 +4,8 @@ the step count, the generator of the training draws, the best eval distance
 and the manual-decay LR scale, all of which a checkpoint carries.
 
 Unlike the JAX package's immutable pytree, the port updates in place:
-`apply_gradients` adds the updates to the module's parameters, and a
+`apply_gradients` adds the updates to the module's parameters
+(`apply_ranger`, Ranger's step on the card, the optimizer state too), and a
 training forward moves the running statistics, on a step that the NaN
 guard skips too (the JAX step applies new_batch_stats whatever the guard
 says).
@@ -18,6 +19,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from pose_estimation_tpu_torch.ops.optim import ranger_apply
 from pose_estimation_tpu_torch.utils.profiling import span
 
 
@@ -40,8 +42,11 @@ def _check_fits(path: str, own, new) -> None:
 
 
 def _to(obj, dev):
+    """obj's tensors copied to `dev`, contiguous: the optimizer state is
+    updated in place on the card (ops.optim.ranger_apply), so it shares
+    no memory with the state dict it came from."""
     if isinstance(obj, torch.Tensor):
-        return obj.to(dev)
+        return obj.to(dev, copy=True, memory_format=torch.contiguous_format)
     if isinstance(obj, dict):
         return {k: _to(v, dev) for k, v in obj.items()}
     return obj
@@ -76,6 +81,18 @@ class TrainState:
                 p.add_(updates[k])
         self.step += 1
         return self
+
+    @torch.no_grad()
+    def apply_ranger(self, tx, grads: dict, loss: torch.Tensor) -> tuple:
+        """The NaN guard and `tx`'s (a Ranger's) update in place, in one
+        call of ops.optim.ranger_apply; (gnorm, finite) as the guard
+        reports them."""
+        with span("optim.update"):
+            out = ranger_apply(self.params, grads, self.opt_state, loss,
+                               **tx.step_args(self.opt_state["count"],
+                                              self.lr_scale))
+        self.step += 1
+        return out
 
     def state_dict(self) -> dict:
         return {"step": self.step, "model": self.model.state_dict(),

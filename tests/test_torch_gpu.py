@@ -21,6 +21,7 @@ from pose_estimation_tpu_torch.configs import schema
 from pose_estimation_tpu_torch.core.mathsafe import safe_normalize
 from pose_estimation_tpu_torch.models.krrn import KRRN
 from pose_estimation_tpu_torch.ops import _build, gcn, pointops, resize
+from pose_estimation_tpu_torch.ops import optim as ops_optim
 
 pytestmark = pytest.mark.gpu
 
@@ -379,12 +380,14 @@ def test_tiny_train_step_launch_counts(dev):
                  if k in ("choose", "cls", "region", "multi_cls_mask") else v)
              for k, v in batch.items()}
     for f in (gcn.linear_multi, gcn.surface_multi, pointops.knn,
-              pointops.nearest_multi):
+              pointops.nearest_multi, ops_optim.ranger_apply):
         f.launches = 0
     m = build_train_step(model, tx, cfg)(state, batch, opt_pose=True)
     assert (gcn.linear_multi.launches, gcn.surface_multi.launches,
             pointops.knn.launches,
             pointops.nearest_multi.launches) == (2, 1, 8, 2)
+    # the guard and Ranger: one ranger_apply call (its table and kernels)
+    assert ops_optim.ranger_apply.launches == ops_optim.LAUNCHES
     assert float(m["skipped_nonfinite"]) == 0.0
     assert all(torch.isfinite(v) for v in m.values())
 
