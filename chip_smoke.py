@@ -29,8 +29,8 @@ Phases (each raises on failure, the script then exits non-zero):
      F.interpolate, its wrapper's and its own device time, the bound,
      F.interpolate's time and ATen's grid and block; the Ranger kernel
      at the TRPESNet and PSPNet leaf sets (a clipped sync step and a
-     plain one) against the plain chain on the card, its device time by
-     kernel against its byte bound, the plain chain's time, the launches
+     plain one) against the leaf path on the card, its device time by
+     kernel against its byte bound, the leaf path's time, the launches
      of each a step;
   4. the pose stage fed ground-truth normalised coordinates of a synthetic
      batch: mean rotation error < 1 deg and ADD@0.1d >= 0.9;
@@ -208,6 +208,9 @@ import sys
 import time
 from pathlib import Path
 
+from portbench import roofline
+from portbench.roofline import nbytes
+
 ROOT = Path(__file__).resolve().parent
 BS = 32
 TRAIN_BS = 8
@@ -242,27 +245,14 @@ FULL_S2_TRAIN = dict(FULL_S2_SERVE, min_dists=2)
 # held where the path runs the shipped HRNet, printed elsewhere
 SHIPPED_RESIZES = {"resize_bilinear": 36}
 
-# H100 SXM peaks: HBM bytes/s; fp32 on the CUDA cores and bf16 products on
-# the tensor cores (NVIDIA's data sheet), packed bf16x2 arithmetic on the
-# CUDA cores (BF16 non-tensor, NVIDIA's Hopper architecture white paper),
-# operations/s
-HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"fp32": 67e12, "bf16_tensor": 989e12, "bf16_packed": 133.8e12}
-
-
-def bound(nbytes, ops):
-    """(bound_ms, bound_by): the least time the card could take for the
-    work, the larger of the bytes over the memory rate (each input read
-    once, each output written once) and the operations over the peak rate
-    of their type (`ops` maps a PEAK_OPS_S key to a count)."""
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = sum(n / PEAK_OPS_S[kind] for kind, n in ops.items())
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
+def bound(n_bytes, ops):
+    """(bound_ms, bound_by): the benchmark's least time for the work
+    (portbench/roofline.py: the H100's peaks; `ops` maps a PEAK_OPS_S key
+    to a count) in milliseconds, and whether the bytes or the operations
+    set it."""
+    least_s = roofline.bound(n_bytes, ops)
+    return (least_s * 1e3, "bytes" if n_bytes / roofline.HBM_BYTES_S
+            >= least_s else "operations")
 
 
 def log(msg):
@@ -920,15 +910,29 @@ def _ranger_gaps(got, ref):
     return worst
 
 
+def ranger_leaf_path(tx, params, grads, state, loss):
+    """The train step's leaf path on the same tensors (what
+    Optimizer.apply runs through TrainState.apply_gradients): the guard,
+    Ranger.update and the add; state replaced in place; (gnorm,
+    finite)."""
+    from pose_estimation_tpu_torch.train.optim import nan_guard
+    grads, gnorm, finite = nan_guard(grads, loss)
+    updates, new = tx.update(grads, state, params)
+    for k, p in params.items():
+        p.add_(updates[k])
+    state.update(new)
+    return gnorm, finite
+
+
 def check_ranger(dev, g, reps=20):
     """The Ranger kernel (ops/optim.py:ranger_apply) at the transparent
     models' leaf sets, the convolutions' gradients channels-last as cuDNN
     gives them: a clipped Lookahead sync step and a plain step against the
-    plain chain on the card (parameters, mu, nu and slow within RANGER_TOL
-    of their largest magnitude in the model, the norm within RANGER_TOL;
-    the reductions' order is the only departure); the
-    wrapper's time and its kernels' device time (torch.profiler), the plain
-    chain's time, the launches of each in a step, and the bound (bytes:
+    train step's leaf path on the card (parameters, mu, nu and slow
+    within RANGER_TOL of their largest magnitude in the model, the norm
+    within RANGER_TOL; the reductions' order is the only departure); the
+    wrapper's time and its kernels' device time (torch.profiler), the leaf
+    path's time, the launches of each in a step, and the bound (bytes:
     the gradient read twice, the parameter and both moments read and
     written, the slow weight too on a sync step, over 3.35 TB/s). Returns
     TRPESNet's row with every model's under "shapes"."""
@@ -960,8 +964,7 @@ def check_ranger(dev, g, reps=20):
                 x.mul_(norm / total)
             args = tx.step_args(state["count"])
             got = ops_optim.ranger_apply(params, grads, state, loss, **args)
-            ref = ops_optim.ranger_apply_plain(twin[0], grads, twin[1],
-                                               loss, **args)
+            ref = ranger_leaf_path(tx, twin[0], grads, twin[1], loss)
             gn, ref_gn = float(got[0]), float(ref[0])
             if (bool(got[1]) != bool(ref[1])
                     or abs(gn - ref_gn) > RANGER_TOL * ref_gn):
@@ -979,8 +982,9 @@ def check_ranger(dev, g, reps=20):
             args = tx.step_args(5 if sync else 6)
             step = lambda: ops_optim.ranger_apply(params, grads, state, loss,
                                                   **args)
-            plain = lambda: ops_optim.ranger_apply_plain(
-                twin[0], grads, twin[1], loss, **args)
+            plain = lambda: ranger_leaf_path(
+                tx, twin[0], grads, dict(twin[1], count=args["count"] - 1),
+                loss)
             step()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):

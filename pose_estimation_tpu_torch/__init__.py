@@ -27,8 +27,8 @@ Layout:
   convert         JAX ('/'-joined npz) params and parameter-shaped trees
                   -> torch
   tools/infer     serving CLI (JSONL per frame)
-  tools/profile_eval, tools/profile_serve
-                  per-component and per-layer times on the card
+  tools/profile_eval
+                  per-component times of the eval path on the card
   utils           the TensorBoard writer and pose overlays (tb, viz);
                   profiling: the program's spans (serve, krrn, pnp,
                   train, optim, op) and its host-sync counter, off by

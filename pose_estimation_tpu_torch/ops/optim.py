@@ -1,5 +1,5 @@
 """The train step's Ranger update over every leaf at once: a hand-written
-CUDA kernel beside its plain version.
+CUDA kernel.
 
   ranger_apply
            csrc/ranger.cu (`pose_ranger_apply`). It replaces no TPU
@@ -13,10 +13,10 @@ CUDA kernel beside its plain version.
            the kernel streams them in three launches after one copy of a
            pointer table, however many leaves the model has.
 
-`ranger_apply` is the wrapper: the plain version for CPU tensors (the
-guard, train.optim.ranger_chain, the add), the kernel for CUDA tensors (or
-an exception; there is no fallback). It counts its launches: the table's
-copy and the three kernels.
+`ranger_apply` is the kernel's wrapper for CUDA tensors (any other device
+raises; there is no fallback). Its plain version is the train step's leaf
+path (train.optim: the guard, Ranger.update and the add). It counts its
+launches: the table's copy and the three kernels.
 """
 
 from __future__ import annotations
@@ -29,8 +29,6 @@ import torch
 
 from pose_estimation_tpu_torch.convert import flax_axis0_dim
 from pose_estimation_tpu_torch.ops import _build
-from pose_estimation_tpu_torch.train.optim import (Ranger, nan_guard,
-                                                   ranger_chain)
 from pose_estimation_tpu_torch.utils.profiling import spanned
 
 # csrc/ranger.cu's layout of the plan
@@ -178,19 +176,6 @@ def _device_plan(key, leaves: list, dev) -> _DevicePlan:
     return _plans[key]
 
 
-def ranger_apply_plain(params: dict, grads: dict, opt_state: dict,
-                       loss: torch.Tensor, **scalars):
-    """The guard, train.optim.ranger_chain and the add, leaf by leaf:
-    the parameters updated in place, opt_state's count, mu, nu and slow
-    replaced; (gnorm, finite)."""
-    grads, gnorm, finite = nan_guard(grads, loss)
-    updates, new = ranger_chain(grads, opt_state, params, **scalars)
-    for k, p in params.items():
-        p.add_(updates[k])
-    opt_state.update(new)
-    return gnorm, finite
-
-
 def _layout(g: torch.Tensor):
     """The gradient layouts the kernel reads: contiguous and, for a 4-D
     leaf, channels-last (cuDNN's weight gradient of an NHWC activation);
@@ -204,7 +189,7 @@ def _layout(g: torch.Tensor):
 
 def _launch(params: dict, grads: dict, opt_state: dict, loss: torch.Tensor,
             *, grad_clip, weight_decay, count, c1, c2, r, step_size,
-            lr_scale, sync):
+            lr_scale, sync, b1, b2, eps, alpha):
     dev = loss.device
     if loss.numel() != 1:
         raise ValueError("ranger_apply: the loss must be one value")
@@ -250,18 +235,17 @@ def _launch(params: dict, grads: dict, opt_state: dict, loss: torch.Tensor,
     gnorm = torch.empty((), dtype=torch.float32, device=dev)
     finite = torch.empty((), dtype=torch.bool, device=dev)
     f = np.float32
-    b1, b2 = f(Ranger.b1), f(Ranger.b2)
     rc = _build.launch(
         _build.library().pose_ranger_apply, dev, table.data_ptr(),
         plan.ints.data_ptr(), plan.factor.data_ptr(), ws.data_ptr(),
         loss.data_ptr(), gnorm.data_ptr(), finite.data_ptr(), n_leaves,
         n_tasks, n_chunks, n_groups, n_slots, float(f(grad_clip or 0.0)),
-        int(bool(grad_clip)), float(f(weight_decay or 0.0)), float(b1),
-        float(f(1 - Ranger.b1)), float(b2), float(f(1 - Ranger.b2)),
+        int(bool(grad_clip)), float(f(weight_decay or 0.0)), float(f(b1)),
+        float(f(1 - b1)), float(f(b2)), float(f(1 - b2)),
         float(f(1) / f(c1)), float(f(1) / f(c2)),
         float(f(r if r is not None else 0.0)), int(r is not None),
-        float(f(Ranger.eps)), float(f(step_size)), float(f(lr_scale)),
-        int(bool(sync)), float(f(Ranger.alpha)))
+        float(f(eps)), float(f(step_size)), float(f(lr_scale)),
+        int(bool(sync)), float(f(alpha)))
     _build.check(rc, "pose_ranger_apply")
     ranger_apply.launches += LAUNCHES
     opt_state["count"] = count
@@ -270,22 +254,16 @@ def _launch(params: dict, grads: dict, opt_state: dict, loss: torch.Tensor,
 
 @spanned("op.ranger_apply")
 def ranger_apply(params: dict, grads: dict, opt_state: dict,
-                 loss: torch.Tensor, *, grad_clip, weight_decay, count, c1,
-                 c2, r, step_size, lr_scale, sync):
-    """One Ranger step with the NaN guard (Ranger.step_args gives the
-    keywords): the parameters (a dict of the model's leaves) and
-    opt_state's mu, nu and slow updated in place from `grads`, its count
-    set to `count`; (gnorm, finite), 0-d tensors on the device: the
+                 loss: torch.Tensor, **step_args):
+    """One Ranger step with the NaN guard on CUDA tensors (the keywords
+    are Ranger.step_args): the parameters (a dict of the model's leaves)
+    and opt_state's mu, nu and slow updated in place from `grads`, its
+    count set to `count`; (gnorm, finite), 0-d tensors on the device: the
     global norm before the clip, and whether it and `loss` are finite (if
     not, the step ran on zeroed gradients)."""
-    scalars = dict(grad_clip=grad_clip, weight_decay=weight_decay,
-                   count=count, c1=c1, c2=c2, r=r, step_size=step_size,
-                   lr_scale=lr_scale, sync=sync)
-    if loss.device.type == "cpu":
-        return ranger_apply_plain(params, grads, opt_state, loss, **scalars)
     if loss.device.type != "cuda":
         raise ValueError(f"ranger_apply: tensors on {loss.device}")
-    return _launch(params, grads, opt_state, loss, **scalars)
+    return _launch(params, grads, opt_state, loss, **step_args)
 
 
 ranger_apply.launches = 0

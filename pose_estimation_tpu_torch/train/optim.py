@@ -43,6 +43,8 @@ import numpy as np
 import torch
 
 from pose_estimation_tpu_torch.convert import flax_axis0_dim
+from pose_estimation_tpu_torch.ops.optim import ranger_apply
+from pose_estimation_tpu_torch.utils.profiling import span
 
 _F32 = torch.float32
 
@@ -154,12 +156,13 @@ def nan_guard(grads: dict, loss: torch.Tensor):
 
 @torch.no_grad()
 def ranger_chain(grads: dict, state: dict, params: dict, *, grad_clip,
-                 weight_decay, count, c1, c2, r, step_size, lr_scale, sync):
-    """Ranger's update from its host scalars (Ranger.step_args): the clip,
-    centralisation, RAdam (the rectifier r, or plain momentum where r is
-    None), weight decay, the learning rate and Lookahead, leaf by leaf.
-    (updates, new state), the state's count `count`."""
-    b1, b2, eps, alpha = Ranger.b1, Ranger.b2, Ranger.eps, Ranger.alpha
+                 weight_decay, count, c1, c2, r, step_size, lr_scale, sync,
+                 b1, b2, eps, alpha):
+    """Ranger's update from its host scalars and constants
+    (Ranger.step_args): the clip, centralisation, RAdam (the rectifier r,
+    or plain momentum where r is None), weight decay, the learning rate
+    and Lookahead, leaf by leaf. (updates, new state), the state's count
+    `count`."""
     grads = clip_by_global_norm(grads, grad_clip)
     mu, nu, slow, updates = {}, {}, {}, {}
     for k, p in params.items():
@@ -181,19 +184,34 @@ def ranger_chain(grads: dict, state: dict, params: dict, *, grad_clip,
     return updates, {"count": count, "mu": mu, "nu": nu, "slow": slow}
 
 
-class Ranger:
-    """The clip + Ranger chain above, optax-style: `init(params)` ->
-    state, `update(grads, state, params, lr_scale)` -> (updates, state),
-    with the reference's constants (ranger.py defaults)."""
-
-    b1, b2, eps = 0.95, 0.999, 1e-5
-    threshold = 5.0               # RAdam's variance tractability
-    sync_period, alpha = 6, 0.5   # Lookahead
+class Optimizer:
+    """What Ranger and Adam share, optax-style: `init(params)` -> state,
+    `update(grads, state, params, lr_scale)` -> (updates, state), and the
+    train step's guarded update `apply`."""
 
     def __init__(self, schedule, weight_decay: float = 0.0,
                  grad_clip: float = 0.0):
         self.schedule = schedule
         self.weight_decay, self.grad_clip = weight_decay, grad_clip
+
+    @torch.no_grad()
+    def apply(self, state, grads: dict, loss: torch.Tensor) -> tuple:
+        """The NaN guard and the update of `state` (a TrainState) in place,
+        leaf by leaf (TrainState.apply_gradients); (gnorm, finite) as the
+        guard reports them."""
+        with span("train.guard"):
+            grads, gnorm, finite = nan_guard(grads, loss)
+        state.apply_gradients(self, grads)
+        return gnorm, finite
+
+
+class Ranger(Optimizer):
+    """The clip + Ranger chain above, with the reference's constants
+    (ranger.py defaults)."""
+
+    b1, b2, eps = 0.95, 0.999, 1e-5
+    threshold = 5.0               # RAdam's variance tractability
+    sync_period, alpha = 6, 0.5   # Lookahead
 
     def init(self, params: dict) -> dict:
         return {"count": 0,
@@ -216,15 +234,17 @@ class Ranger:
                 r)
 
     def step_args(self, count: int, lr_scale: float = 1.0) -> dict:
-        """The host scalars of the update from the state's `count`: the
-        keywords of ranger_chain and ops.optim.ranger_apply (count, the
-        count after it)."""
+        """The host scalars of the update from the state's `count`, and
+        the constants: the keywords of ranger_chain and
+        ops.optim.ranger_apply (count, the count after it)."""
         new = count + 1
         c1, c2, r = self._radam_scalars(new)
         return {"grad_clip": self.grad_clip,
                 "weight_decay": self.weight_decay, "count": new, "c1": c1,
                 "c2": c2, "r": r, "step_size": -self.schedule(count),
-                "lr_scale": lr_scale, "sync": new % self.sync_period == 0}
+                "lr_scale": lr_scale, "sync": new % self.sync_period == 0,
+                "b1": self.b1, "b2": self.b2, "eps": self.eps,
+                "alpha": self.alpha}
 
     @torch.no_grad()
     def update(self, grads: dict, state: dict, params: dict,
@@ -232,18 +252,26 @@ class Ranger:
         return ranger_chain(grads, state, params,
                             **self.step_args(state["count"], lr_scale))
 
+    @torch.no_grad()
+    def apply(self, state, grads: dict, loss: torch.Tensor) -> tuple:
+        """On CUDA tensors the guard and the update in one call of the
+        hand-written kernel (ops.optim.ranger_apply); elsewhere leaf by
+        leaf (Optimizer.apply)."""
+        if not loss.is_cuda:
+            return super().apply(state, grads, loss)
+        with span("optim.update"):
+            out = ranger_apply(state.params, grads, state.opt_state, loss,
+                               **self.step_args(state.opt_state["count"],
+                                                state.lr_scale))
+        state.step += 1
+        return out
 
-class Adam:
-    """The clip + Adam(W) chain above, with the Ranger interface. The
-    state is {count, mu, nu}; the bias corrections are float32 on the
-    host, as optax computes them."""
+
+class Adam(Optimizer):
+    """The clip + Adam(W) chain above. The state is {count, mu, nu}; the
+    bias corrections are float32 on the host, as optax computes them."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
-
-    def __init__(self, schedule, weight_decay: float = 0.0,
-                 grad_clip: float = 0.0):
-        self.schedule = schedule
-        self.weight_decay, self.grad_clip = weight_decay, grad_clip
 
     def init(self, params: dict) -> dict:
         return {"count": 0,

@@ -4,9 +4,9 @@ the step count, the generator of the training draws, the best eval distance
 and the manual-decay LR scale, all of which a checkpoint carries.
 
 Unlike the JAX package's immutable pytree, the port updates in place:
-`apply_gradients` adds the updates to the module's parameters
-(`apply_ranger`, Ranger's step on the card, the optimizer state too), and a
-training forward moves the running statistics, on a step that the NaN
+`apply_gradients` adds the updates to the module's parameters (Ranger's
+step on the card, train.optim.Ranger.apply, the optimizer state too), and
+a training forward moves the running statistics, on a step that the NaN
 guard skips too (the JAX step applies new_batch_stats whatever the guard
 says).
 """
@@ -19,7 +19,6 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from pose_estimation_tpu_torch.ops.optim import ranger_apply
 from pose_estimation_tpu_torch.utils.profiling import span
 
 
@@ -81,18 +80,6 @@ class TrainState:
                 p.add_(updates[k])
         self.step += 1
         return self
-
-    @torch.no_grad()
-    def apply_ranger(self, tx, grads: dict, loss: torch.Tensor) -> tuple:
-        """The NaN guard and `tx`'s (a Ranger's) update in place, in one
-        call of ops.optim.ranger_apply; (gnorm, finite) as the guard
-        reports them."""
-        with span("optim.update"):
-            out = ranger_apply(self.params, grads, self.opt_state, loss,
-                               **tx.step_args(self.opt_state["count"],
-                                              self.lr_scale))
-        self.step += 1
-        return out
 
     def state_dict(self) -> dict:
         return {"step": self.step, "model": self.model.state_dict(),

@@ -34,9 +34,8 @@ from pose_estimation_tpu_torch.data.pipeline import denormalize_xyz
 from pose_estimation_tpu_torch.losses.pose_loss import krrn_loss, pose_loss
 from pose_estimation_tpu_torch.parallel import dist
 from pose_estimation_tpu_torch.serve import region_base_at_choose
-from pose_estimation_tpu_torch.train.optim import Ranger, nan_guard
 from pose_estimation_tpu_torch.train.state import TrainState
-from pose_estimation_tpu_torch.utils.profiling import span, spanned
+from pose_estimation_tpu_torch.utils.profiling import spanned
 
 
 def loss_weights_dict(cfg: Config) -> dict:
@@ -150,17 +149,10 @@ class TrainStep:
     def apply(self, state: TrainState, losses: dict, grads: dict) -> dict:
         """The guard and the update from `grads` (already averaged over
         the group); the metrics are the loss terms averaged over the
-        group, the guard's decision and the gradient norm. Ranger on the
-        card runs both in one hand-written kernel (state.apply_ranger);
-        on the CPU, and Adam anywhere, they run leaf by leaf."""
+        group, the guard's decision and the gradient norm. The optimizer
+        picks the route (train.optim: Optimizer.apply, Ranger.apply)."""
         metrics = dist.mean_dict({k: v.detach() for k, v in losses.items()})
-        loss = metrics[self.total]
-        if isinstance(self.tx, Ranger) and loss.is_cuda:
-            gnorm, finite = state.apply_ranger(self.tx, grads, loss)
-        else:
-            with torch.no_grad(), span("train.guard"):
-                grads, gnorm, finite = nan_guard(grads, loss)
-            state.apply_gradients(self.tx, grads)
+        gnorm, finite = self.tx.apply(state, grads, metrics[self.total])
         metrics["skipped_nonfinite"] = (~finite).float()
         metrics["grad_norm"] = gnorm
         return metrics

@@ -1,14 +1,18 @@
-"""The train step's Ranger update in one call (ops/optim.py:ranger_apply,
-the CUDA kernel csrc/ranger.cu) on the CPU: the plain path against the
-guard, Ranger.update and the add as the step ran them leaf by leaf, bit
-for bit; the train step and state around it; the kernel's plan (every
-gradient element read once, in its group; every parameter written once)
+"""The train step's guarded Ranger update (train/optim.py: Ranger.apply,
+on the card one call of ops/optim.py:ranger_apply, the CUDA kernel
+csrc/ranger.cu) on the CPU: the leaf path against the guard, Ranger.update
+and the add as the step ran them before the kernel, bit for bit; the train
+step and state around it; ops/ importing nothing of train/; the kernel's
+plan (every gradient element read once, in its group; every parameter
+written once)
 with the kernel's reductions done by the plan in numpy; the entry's ctypes
 signature against the wrapper's arguments and its launches, the same for 3
 leaves and 863. The kernel itself runs in tests/test_torch_ranger_gpu.py.
 """
 
+import ast
 import ctypes
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -108,6 +112,17 @@ def _seed_step(tx, params, grads, opt_state, loss, lr_scale):
     return new, gnorm, finite
 
 
+class _Leaves:
+    """A model whose parameters are the tensors of `params` (for
+    TrainState)."""
+
+    def __init__(self, params: dict):
+        self.leaves = params
+
+    def named_parameters(self):
+        return iter(self.leaves.items())
+
+
 def _tensors(shapes: dict, seed: int, scale: float = 1.0,
              channels_last: bool = False) -> dict:
     rng = np.random.RandomState(seed)
@@ -145,10 +160,10 @@ def test_plain_path_is_the_seed_step_bit_for_bit(case, weight_decay):
     ref_p = {k: v.clone() for k, v in params.items()}
     ref_state, ref_gnorm, ref_finite = _seed_step(
         tx, ref_p, grads, state, loss, lr_scale=0.5)
-    got_state = dict(state)
-    gnorm, finite = ops_optim.ranger_apply(
-        params, grads, got_state, loss,
-        **tx.step_args(state["count"], 0.5))
+    got = TrainState(_Leaves(params), dict(state), torch.Generator(),
+                     lr_scale=0.5)
+    gnorm, finite = tx.apply(got, grads, loss)
+    got_state = got.opt_state
     assert torch.equal(gnorm, ref_gnorm) or (
         gnorm.isnan() and ref_gnorm.isnan())
     assert bool(finite) == bool(ref_finite) == (case not in (
@@ -156,6 +171,7 @@ def test_plain_path_is_the_seed_step_bit_for_bit(case, weight_decay):
     if case == "clipped":
         assert float(ref_gnorm) > 10.0
     assert got_state["count"] == ref_state["count"] == count + 1
+    assert got.step == 1
     for k in SMALL:
         assert torch.equal(params[k], ref_p[k]), k
         for s in ("mu", "nu", "slow"):
@@ -177,41 +193,12 @@ def test_step_args_give_update_s_scalars():
     assert args[3]["count"] == 4
 
 
-def test_apply_ranger_on_the_cpu_is_guard_and_apply_gradients():
-    """TrainState.apply_ranger (the card's path) through the plain
-    version equals the guard and apply_gradients bit for bit, count and
-    step advanced alike."""
-    torch.manual_seed(0)
-    model = torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3), torch.nn.Flatten(),
-                                torch.nn.Linear(4 * 4 * 4, 2))
-    twin = torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3), torch.nn.Flatten(),
-                               torch.nn.Linear(4 * 4 * 4, 2))
-    twin.load_state_dict(model.state_dict())
-    tx = optim.Ranger(lambda c: 1e-2, grad_clip=1.0)
-    gen = torch.Generator()
-    a = TrainState.create(model, tx, gen)
-    b = TrainState.create(twin, tx, gen)
-    x = torch.randn(2, 3, 6, 6)
-    for _ in range(7):
-        loss_a = model(x).square().sum()
-        ga = dict(zip([k for k, _ in model.named_parameters()],
-                      torch.autograd.grad(loss_a, list(model.parameters()))))
-        loss_b = twin(x).square().sum()
-        gb = dict(zip([k for k, _ in twin.named_parameters()],
-                      torch.autograd.grad(loss_b, list(twin.parameters()))))
-        gnorm, finite = a.apply_ranger(tx, ga, loss_a.detach())
-        gb, gnorm_b, finite_b = optim.nan_guard(gb, loss_b.detach())
-        b.apply_gradients(tx, gb)
-        assert torch.equal(gnorm, gnorm_b) and bool(finite) == bool(finite_b)
-    assert a.step == b.step == 7 and a.opt_state["count"] == 7
-    for (k, p), q in zip(model.named_parameters(), twin.parameters()):
-        assert torch.equal(p, q), k
-
-
-def test_train_step_on_the_cpu_goes_through_apply_gradients(monkeypatch):
-    """On the CPU the step runs the guard and apply_gradients (the
-    benchmark's fault checks replace that method to leave the state
-    unchanged)."""
+@pytest.mark.parametrize("kind", (optim.Ranger, optim.Adam))
+def test_train_step_on_the_cpu_goes_through_apply_gradients(monkeypatch,
+                                                            kind):
+    """On the CPU the step runs the guard and apply_gradients, with
+    either optimizer (the benchmark's fault checks replace that method
+    to leave the state unchanged)."""
     from pose_estimation_tpu_torch.train.train_step import TrainStep
     calls = []
     seen = TrainState.apply_gradients
@@ -221,7 +208,7 @@ def test_train_step_on_the_cpu_goes_through_apply_gradients(monkeypatch):
         return seen(self, tx, grads)
     monkeypatch.setattr(TrainState, "apply_gradients", spy)
     model = torch.nn.Linear(3, 2)
-    tx = optim.Ranger(lambda c: 1e-2, grad_clip=1.0)
+    tx = kind(lambda c: 1e-2, grad_clip=1.0)
     state = TrainState.create(model, tx, torch.Generator())
     step = TrainStep.__new__(TrainStep)
     step.tx, step.total = tx, "loss"
@@ -230,6 +217,30 @@ def test_train_step_on_the_cpu_goes_through_apply_gradients(monkeypatch):
                      torch.autograd.grad(loss, list(model.parameters()))))
     m = step.apply(state, {"loss": loss}, grads)
     assert calls == [2] and float(m["skipped_nonfinite"]) == 0.0
+    assert state.step == state.opt_state["count"] == 1
+
+
+def test_ops_import_nothing_of_train():
+    """The kernels' layer sits below the train layer: no module under
+    ops/ imports pose_estimation_tpu_torch.train (Ranger's constants
+    reach ops.optim.ranger_apply as keywords)."""
+    package = ["pose_estimation_tpu_torch", "ops"]
+    train = "pose_estimation_tpu_torch.train"
+    for path in sorted(Path(ops_optim.__file__).parent.glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                # a relative import counts up from ops/
+                parts = package[:len(package) + 1 - node.level] \
+                    if node.level else []
+                base = ".".join(parts + [node.module] if node.module
+                                else parts)
+                names = [base] + [f"{base}.{a.name}" for a in node.names]
+            else:
+                continue
+            assert not any(n == train or n.startswith(train + ".")
+                           for n in names), (path.name, node.lineno)
 
 
 def test_load_state_dict_copies_the_optimizer_state():

@@ -1,6 +1,6 @@
 """The Ranger kernel (csrc/ranger.cu through ops/optim.py:ranger_apply) on
-a card, against its plain version (the guard, train.optim.ranger_chain and
-the add, leaf by leaf, run on the card).
+a card, against its plain version, the train step's leaf path (the guard,
+Ranger.update and the add, leaf by leaf, run on the card).
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX; on the machine with the card:
@@ -121,6 +121,19 @@ def _all(params: dict, state: dict) -> tuple:
     return (params, state["mu"], state["nu"], state["slow"])
 
 
+def _leaf_path(tx, params: dict, grads: dict, state: dict, loss,
+               lr_scale: float) -> tuple:
+    """The step's leaf path on the same tensors (what Optimizer.apply
+    runs through TrainState.apply_gradients): the guard, Ranger.update and
+    the add; state replaced in place; (gnorm, finite)."""
+    grads, gnorm, finite = optim.nan_guard(grads, loss)
+    updates, new = tx.update(grads, state, params, lr_scale)
+    for k, p in params.items():
+        p.add_(updates[k])
+    state.update(new)
+    return gnorm, finite
+
+
 def _grads(shapes: dict, step: int, dev, norm: float, nan: bool) -> dict:
     grads = _numpy(shapes, 100 + step, dev, channels_last=True)
     total = float(torch.sqrt(sum((g.double() ** 2).sum()
@@ -147,8 +160,8 @@ def test_kernel_follows_the_plain_chain_for_8_steps(dev, which):
         assert args["sync"] == (i == 5) and (args["r"] is None) == (i < 5)
         gnorm, finite = ops_optim.ranger_apply(params, grads, state, loss,
                                                **args)
-        ref_gnorm, ref_finite = ops_optim.ranger_apply_plain(
-            ref_params, grads, ref_state, loss, **args)
+        ref_gnorm, ref_finite = _leaf_path(tx, ref_params, grads,
+                                           ref_state, loss, 1.0)
         assert bool(finite) == bool(ref_finite) == (not nan and total == 1)
         if nan:
             assert gnorm.isnan() and ref_gnorm.isnan()
@@ -175,8 +188,8 @@ def test_kernel_arithmetic_is_the_chain_s_bit_for_bit(dev, which):
         loss = torch.tensor(1.0, device=dev)
         args = tx.step_args(state["count"], 0.75)
         gnorm, _ = ops_optim.ranger_apply(params, grads, state, loss, **args)
-        ref_gnorm, _ = ops_optim.ranger_apply_plain(
-            ref_params, grads, ref_state, loss, **args)
+        ref_gnorm, _ = _leaf_path(tx, ref_params, grads, ref_state, loss,
+                                  0.75)
         assert float(gnorm) < CLIP
         assert float(gnorm) == pytest.approx(float(ref_gnorm), rel=TOL)
         for k in shapes:
